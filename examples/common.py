@@ -14,10 +14,12 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lhvi_jax_cache")
-
 
 def setup_platform(force_cpu: bool = False, n_virtual: int = 8):
+    """Pick the platform and turn on the compile cache.
+
+    ``force_cpu`` runs on an ``n_virtual``-device CPU mesh; otherwise the
+    examples need a GPU and stop if JAX finds none."""
     import jax
 
     if force_cpu:
@@ -27,6 +29,11 @@ def setup_platform(force_cpu: bool = False, n_virtual: int = 8):
                 flags + f" --xla_force_host_platform_device_count={n_virtual}"
             ).strip()
         jax.config.update("jax_platforms", "cpu")
+    elif jax.devices()[0].platform != "gpu":
+        raise SystemExit("no GPU found; pass --cpu to run on the CPU mesh")
+    from lhvi_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     return jax
 
 

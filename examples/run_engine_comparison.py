@@ -6,7 +6,7 @@ models; no absolute numbers published, BASELINE.md). One script sweeps a
 budget ladder per engine on one model, scores every latent's posterior
 mean against an exact oracle, and emits the error-vs-wall curve as JSONL
 (`--metrics out.jsonl`) plus a printed table — the JSONL replaces the
-reference's matplotlib plots (accepted in VERDICT r1). Each point is run
+reference's matplotlib plots. Each point is run
 twice and the SECOND wall time is reported, so jitted engines are scored
 on execution, not trace+compile.
 

@@ -1,9 +1,10 @@
-"""lhvi_tpu — TPU-native lifted hybrid variational inference framework.
+"""lhvi_tpu — lifted hybrid variational inference on JAX accelerators.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 ``leodd/Lifted-Hybrid-Variational-Inference`` (hybrid discrete+continuous
 factor graphs, relational/MLN grounding, lifted symmetry compression via
-color passing, and a family of inference engines), re-designed TPU-first:
+color passing, and a family of inference engines), re-designed for
+batched accelerator execution:
 
 - factor graphs compile to bucketed, statically-shaped array IR
   (``lhvi_tpu.fg``) evaluated as batched XLA/Pallas kernels;

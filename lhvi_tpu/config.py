@@ -65,9 +65,9 @@ class FriendsSmokersConfig(EngineConfig):
 class LDSConfig(EngineConfig):
     """BASELINE config 4: Kalman-like LDS under SMC.
 
-    Production default is ADAPTIVE tempering (VERDICT r4 #3: measured
-    strictly tighter at equal moves, and the fixed grid silently loses
-    rejuvenation acceptance on stiff targets); ``--smc-adaptive false``
+    Production default is ADAPTIVE tempering (measured strictly tighter
+    at equal moves, and the fixed grid silently loses rejuvenation
+    acceptance on stiff targets); ``--smc-adaptive false``
     restores the fixed β grid (the identity tests pin that path)."""
 
     T: int = 20
@@ -93,9 +93,8 @@ class PodConfig(EngineConfig):
 
     n_people: int = 320
     evidence_people: int = 16
-    # per-chip chain count; scale total chains via the dp mesh axis. 128
-    # is a conservative measured sweet spot — raise freely on deployments
-    # with more HBM headroom (see docs/PERF.md "environment limits").
+    # per-device chain count; scale total chains via the dp mesh axis.
+    # Memory grows linearly in chains (the plan tables are shared).
     n_chains: int = 128
     collect: str = "moments"
 

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from lhvi_tpu.utils import struct
 
 from lhvi_tpu.fg.compile import CompiledFG, expand_params
 from lhvi_tpu.ops.select import select_last
@@ -40,33 +40,26 @@ class HMCConfig:
     gibbs_max_colors: int = struct.field(pytree_node=False, default=0)
     adapt_mass: bool = struct.field(pytree_node=False, default=True)
     jitter: float = struct.field(pytree_node=False, default=1.0)
-    # opt-in Pallas fused log-potential/leapfrog for non-quad targets
-    # (ops/logpot.py; at parity with the XLA path at measured scales)
-    fused_logpot: bool = struct.field(pytree_node=False, default=False)
     # unroll factor for the per-color planned-Gibbs scan: sweeps over
     # many small color classes (e.g. 288 at pod scale) are loop-latency
     # bound, not FLOP bound — unrolling trades program size for fewer
     # sequential while-loop iterations
     gibbs_unroll: int = struct.field(pytree_node=False, default=1)
     # chain-axis NamedSharding, stamped by run_hmc(shard=...); routes the
-    # Pallas quad leapfrog through shard_map (one kernel per device)
+    # dense quad leapfrog kernel through shard_map (one kernel per device)
     shard: object = struct.field(pytree_node=False, default=None)
-    # banded (DIA) trajectory-resident Pallas leapfrog on ELL targets
-    # whose offsets form a small static set (ops/dia.py); False keeps the
-    # ELL gather·FMA path for A/B measurement
+    # sparse targets whose ELL offsets form a small static set take the
+    # banded (DIA) shift-multiply-accumulate leapfrog (ops/dia.py); False
+    # keeps the ELL gather·FMA path. Both are plain XLA.
     dia_kernel: bool = struct.field(pytree_node=False, default=True)
     # orbit-level mode-swap MH move after each Gibbs stage
     # (engines/modeswap.py): unlocks symmetric joint modes that
     # single-site chromatic Gibbs cannot cross (the pod flagship's
-    # frozen ferromagnetic smokes clique — docs/PERF.md round 5).
+    # frozen ferromagnetic smokes clique).
     # run_hmc/run_nuts build the orbit plan on demand when enabled.
     mode_swap: bool = struct.field(pytree_node=False, default=False)
     # apply the move with probability 1/every per transition (random-scan
-    # mixture — exact; amortizes the two logit passes). CAUTION: the
-    # lax.cond gate crashes this environment's TPU worker at pod scale
-    # (≥~1e5 latents, measured 4/4 at 320 people while every=1 and
-    # smaller models run clean) — keep every=1 there; the move costs
-    # +20% end-to-end in the flagship production config (docs/PERF.md r5)
+    # mixture — exact; amortizes the two logit passes behind a lax.cond)
     mode_swap_every: int = struct.field(pytree_node=False, default=1)
 
 
@@ -155,8 +148,7 @@ def _color_class_logits(fg: CompiledFG, grp, tabs, xc, xd, xv):
     Value lookups are all in value space via compile-time tables
     (``disc_cval``/``sub_vals``) + the maintained value state: a runtime
     ``take_along_axis`` over the [R, ad, K] value tables materializes a
-    128-lane-padded copy of the candidate index tensor (measured: ~5 GB
-    and ~6 ms PER color step at pod scale, and an OOM at 256 chains).
+    padded copy of the candidate index tensor per color step.
     """
     V = fg.max_v
     M = grp.n_vars
@@ -275,8 +267,8 @@ def planned_logits(fg: CompiledFG, xc: Array, xd: Array) -> Array:
     program per cost-group, per-color peak memory ~ that color's adjacent
     rows), so it stays compilable — and vmappable over a chain axis —
     at pod scale, where the all-rows ``disc_logits`` pass materializes
-    candidate tensors the worker cannot hold (the mode-swap move's logit
-    backend, docs/PERF.md round 5). Also the exact-identity hook used by
+    candidate tensors too large for device memory (the mode-swap move's
+    logit backend). Also the exact-identity hook used by
     tests to prove the plan matches ``CompiledFG.disc_logits``."""
     V = fg.max_v
     out = jnp.zeros((fg.n_disc + 1, V))
@@ -313,8 +305,7 @@ class _StreamDiag(NamedTuple):
     pair (``lax.cond`` on the scalar draw index), and the batch-means
     Welford pair is touched only at batch boundaries — per-draw HBM
     traffic is ~6 [C, n] round-trips, not the 17 of the naive
-    formulation (measured 36% of headline HMC throughput at 65k chains
-    for the 5-trip fmt-2 layout; docs/PERF.md round 4)."""
+    formulation."""
 
     h1_mean: Array
     h1_m2: Array
@@ -452,8 +443,7 @@ def _stream_diag_finalize(sd: _StreamDiag, n_samples: int,
 class _StreamDiagDisc(NamedTuple):
     """Split-half Welford pairs over the VALUE states of (a subset of)
     the discrete latents — the streamed split-R̂ evidence for the Gibbs
-    half of the sampler (VERDICT r4 #1: at pod scale 99.7% of the state
-    is discrete and previously shipped no convergence evidence). All
+    half of the sampler. All
     [C, n_sel] f32, where the selection is every discrete latent below
     ``disc_diag_cap`` and a deterministic color-stratified subsample
     above it (``disc_diag_select``)."""
@@ -565,8 +555,9 @@ def _hmc_step_batched(fg: CompiledFG, cfg: HMCConfig, key, xc, xd, eps,
     """One HMC proposal for ALL chains at once.
 
     On purely-quadratic continuous targets this routes through the fused
-    Pallas leapfrog (one MXU matmul per step, state resident in VMEM);
-    otherwise all chains run one LOCKSTEP batched leapfrog driven by
+    quad leapfrog (``ops.leapfrog``: Triton kernel on the GPU for small
+    dense J, XLA otherwise; ELL/DIA for sparse J); otherwise all chains
+    run one LOCKSTEP batched leapfrog driven by
     ``∇ log_prob_cont_batched`` — one fused gather/kernel program per
     bucket for the whole batch, and the purely-discrete buckets (constant
     in xc at the chain's fixed xd, e.g. the pod-scale MLN cliques) drop
@@ -580,12 +571,10 @@ def _hmc_step_batched(fg: CompiledFG, cfg: HMCConfig, key, xc, xd, eps,
         k_mom, k_acc = jax.random.split(key)
         std = jnp.sqrt(1.0 / jnp.maximum(inv_mass, 1e-12))
         p0 = std[None, :] * jax.random.normal(k_mom, xc.shape)
-        # fused-by-XLA batched leapfrog by default; cfg.fused_logpot
-        # opts into the Pallas fused log-potential kernel (ops/logpot.py)
-        # — either way the trajectory energies come back with the endpoint
+        # fused-by-XLA batched leapfrog; the trajectory energies come
+        # back with the endpoint
         x1, p1, lp0, lp1 = logpot_leapfrog(
             fg, xc, p0, xd, inv_mass, eps, cfg.n_leapfrog,
-            plan="auto" if cfg.fused_logpot else None,
         )
         ke = lambda p: 0.5 * jnp.sum(inv_mass[None, :] * p * p, axis=-1)
         h0 = -lp0 + ke(p0)
@@ -600,24 +589,19 @@ def _hmc_step_batched(fg: CompiledFG, cfg: HMCConfig, key, xc, xd, eps,
 
     C = xc.shape[0]
     k_mom, k_acc = jax.random.split(key)
-    from lhvi_tpu.ops.dia import DIA_MAX_EMB
 
     if (fg.quad_sparse and fg.quad_dia_offsets is not None
-            and cfg.dia_kernel
-            # past this embedded width the whole-trajectory kernel
-            # cannot fit VMEM even at the minimum block — ELL stands
-            and fg.quad_dia_w.shape[1] <= DIA_MAX_EMB):
-        # banded refinement: one fused proposal — momentum sampling,
-        # whole-trajectory VMEM-resident Pallas integration (static
-        # lane-rolls, no gathers), energies — all in declaration-order
-        # embedded coordinates, entered/left by ONE gather each way
-        # (ops/dia.py; jnp fallback off-TPU)
+            and cfg.dia_kernel):
+        # banded refinement: one proposal — momentum sampling, static
+        # shift-multiply-accumulate integration (no gathers), energies —
+        # all in declaration-order embedded coordinates, entered/left by
+        # ONE gather each way (ops/dia.py)
         from lhvi_tpu.ops.dia import dia_hmc_proposal
 
         x1, log_acc = dia_hmc_proposal(
             k_mom, xc, fg.quad_diag, fg.quad_dia_offsets, fg.quad_dia_w,
             fg.quad_h, inv_mass, eps, cfg.n_leapfrog,
-            pos=fg.quad_dia_pos, inv=fg.quad_dia_inv, shard=cfg.shard,
+            pos=fg.quad_dia_pos, inv=fg.quad_dia_inv,
         )
         accept = jnp.log(jax.random.uniform(k_acc, (C,))) < log_acc
         xc = jnp.where(accept[:, None], x1, xc)
@@ -840,8 +824,7 @@ def run_hmc(
     stream_diag (moments mode): carry the streamed split-R̂/ESS
     accumulators (default — production runs want convergence evidence).
     Set False for pure-throughput measurement: the accumulators cost
-    ~5 [C, n] HBM round-trips per draw, a measured 36% of headline HMC
-    throughput at 65k chains on small models (docs/PERF.md round 4).
+    ~5 [C, n] HBM round-trips per draw.
 
     disc_diag_cap (moments mode, with stream_diag): how many discrete
     latents carry streamed split-R̂ over their value traces
@@ -882,13 +865,8 @@ def _run_hmc(
 ):
     k_init, k_warm, k_samp = jax.random.split(key, 3)
     if shard is not None:
-        if cfg.fused_logpot:
-            # a pallas_call does not SPMD-partition: keeping the fused
-            # non-quad kernel on a sharded chain axis would gather the
-            # full [C, n] state onto one device every transition
-            cfg = cfg.replace(fused_logpot=False)
-        # the quad leapfrog kernel, by contrast, dispatches per-shard via
-        # shard_map (chains never communicate inside a transition)
+        # the quad leapfrog kernel dispatches per-shard via shard_map
+        # (chains never communicate inside a transition)
         cfg = cfg.replace(shard=shard)
     state = init_hmc_state(fg, k_init, cfg, n_chains, shard)
     trans = lambda s, k, adapt: hmc_transition(fg, cfg, s, k, adapt)

@@ -2,7 +2,7 @@
 (reference ``HybridMaxWalkSAT.py`` parity, SURVEY.md §3.1; mount empty —
 behavioral reconstruction of MaxWalkSAT-style search over hybrid states).
 
-TPU-first redesign: instead of one walker flipping one variable per step,
+Batched redesign: instead of one walker flipping one variable per step,
 ``n_walkers`` states run in lockstep under ``vmap``; each step every walker
 either (greedy) applies the best single discrete reassignment — computed
 from the same fused ``disc_logits`` pass chromatic Gibbs uses — plus a
@@ -17,7 +17,7 @@ from functools import partial
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from lhvi_tpu.utils import struct
 
 from lhvi_tpu.fg.compile import CompiledFG
 from lhvi_tpu.ops.select import select_last

@@ -1,6 +1,6 @@
 """Collapsed orbit-flip MH move: unlocks mode-locked discrete blocks.
 
-Why this exists (measured, docs/PERF.md round 5 "Discrete mode-locking"):
+Why this exists (discrete mode-locking):
 on the pod flagship (SURVEY.md §1 config 5, friends-smokers MLN) the
 ``friends(X,Y) ⇒ (smokes(X) ⇔ smokes(Y))`` couplings ground to a
 ferromagnetic clique over the free ``smokes`` latents. A single-site flip
@@ -45,7 +45,7 @@ A chain stuck in the minor mode accepts the uphill collapsed flip almost
 surely on the first proposal; the reverse move accepts with the correct
 Boltzmann frequency, so pooled marginals land on the true mode weights.
 
-TPU shape: one ``lax.scan`` over G groups; each step is two fused
+Program shape: one ``lax.scan`` over G groups; each step is two fused
 all-rows conditional-logit passes (``CompiledFG.disc_logits``, vmapped
 over chains), two masked bucket-kernel sums, and ``[C]``-row ``where``s.
 No scatters, static shapes; GSPMD partitions the chain axis natively.
@@ -59,7 +59,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from lhvi_tpu.utils import struct
 
 from lhvi_tpu.fg.compile import CompiledFG
 
@@ -315,7 +315,7 @@ def mode_swap_sweep(
         # per-color scanned assembly: identical logits, but peak memory
         # per step is one color class's adjacent rows — the all-rows
         # disc_logits pass materializes [C, R, V, ad] candidate tensors
-        # per slot and kills the pod-scale worker (measured r5)
+        # per slot, too large for device memory at pod scale
         from lhvi_tpu.engines.hmc import planned_logits
 
         logits_fn = lambda c, d: planned_logits(fg, c, d)

@@ -13,7 +13,7 @@ stack of the iterative formulation (store leaf j at slot popcount(j); when
 finishing odd leaf j, check against boundaries j+1−2^l for
 l = 1..ctz(j+1)) indexes with scalar slots: checkpoint writes are
 ``dynamic_update_slice`` on a ``[depth+1, C, n]`` array — no per-chain
-scatters (which lower to one-hot matmuls on TPU). Chains whose trajectory
+scatters. Chains whose trajectory
 terminated early (U-turn / divergence / max depth) idle behind masks until
 the batch finishes; the loop exits when every chain is done.
 
@@ -32,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from lhvi_tpu.utils import struct
 
 from lhvi_tpu.fg.compile import CompiledFG
 from lhvi_tpu.engines import hmc as _hmc
@@ -53,15 +53,6 @@ class NUTSConfig:
     # per-color scan unroll for the planned Gibbs sweep (see
     # HMCConfig.gibbs_unroll — pod-scale sweeps are loop-latency bound)
     gibbs_unroll: int = struct.field(pytree_node=False, default=1)
-    # fused Pallas trajectory kernel on pure-quadratic TPU targets. On a
-    # sharded chain axis (run_nuts(shard=...)) the kernel runs one
-    # instance per device under shard_map — chains never communicate
-    # inside a transition, so this is exact SPMD (a bare pallas_call
-    # would not partition).
-    pallas: bool = struct.field(pytree_node=False, default=True)
-    # chain-axis NamedSharding, stamped by run_nuts(shard=...); consumed
-    # by the Pallas trajectory dispatch (hashable -> valid static field)
-    shard: object = struct.field(pytree_node=False, default=None)
     # orbit-level mode-swap MH move after the Gibbs stage (see
     # HMCConfig.mode_swap / engines/modeswap.py)
     mode_swap: bool = struct.field(pytree_node=False, default=False)
@@ -97,8 +88,8 @@ def _ctz(n):
 def _make_grad_lp(fg: CompiledFG, xd: Array):
     """Batched (grad, logp) closure: [C, n] -> ([C, n], [C]).
 
-    Pure-quadratic continuous energy: one matmul serves both (the MXU fast
-    path — ``g = h − Jq`` and ``lp = c + ½ q·(h + g)``). Otherwise one
+    Pure-quadratic continuous energy: one f32 matmul serves both
+    (``g = h − Jq`` and ``lp = c + ½ q·(h + g)``). Otherwise one
     batched vjp over ``fg.log_prob_cont_batched`` at the chains' current
     discrete states: purely-discrete buckets are constant in q per chain,
     so they shift every leaf's Hamiltonian of that chain equally — all
@@ -117,7 +108,10 @@ def _make_grad_lp(fg: CompiledFG, xd: Array):
         J = fg.quad_J
 
         def grad_lp(q):
-            g = h[None, :] - q @ J  # J symmetric by construction
+            # J symmetric by construction; HIGHEST keeps the gradient and
+            # energies feeding the MH/multinomial weights f32, not TF32
+            g = h[None, :] - jnp.dot(q, J,
+                                     precision=jax.lax.Precision.HIGHEST)
             lp = c + 0.5 * jnp.sum(q * (h[None, :] + g), axis=-1)
             return g, lp
 
@@ -170,30 +164,13 @@ def _uturn_batched(dq, p_a, p_b, inv_mass):
     )
 
 
-def _nuts_sweep_batched(fg, key, xc, xd, eps, inv_mass, max_depth: int,
-                        use_pallas: bool = True, shard=None):
+def _nuts_sweep_batched(fg, key, xc, xd, eps, inv_mass, max_depth: int):
     """One NUTS transition for ALL chains (lockstep shared leaf schedule).
 
-    Returns (xc', accept_stat [C], depth [C], diverged [C]).
-
-    Pure-quadratic targets on TPU route through the fused Pallas
-    trajectory kernel (``ops.nuts_traj`` — whole tree VMEM-resident per
-    chain block); this XLA formulation is the fallback for hybrid /
-    non-quadratic models, sharded chain axes, and CPU test meshes.
+    Returns (xc', accept_stat [C], depth [C], diverged [C]). Plain XLA for
+    every model; on a sharded chain axis GSPMD partitions it (chains never
+    communicate inside a transition).
     """
-    if (use_pallas and fg.cont_pure_quad and not fg.quad_sparse
-            and jax.default_backend() == "tpu"):
-        from lhvi_tpu.ops.nuts_traj import nuts_trajectory
-        from lhvi_tpu.parallel.mesh import n_chain_shards
-
-        n_shards = n_chain_shards(shard) if shard is not None else 1
-        if xc.shape[0] % n_shards == 0:
-            return nuts_trajectory(fg, key, xc, eps, inv_mass, max_depth,
-                                   shard=shard)
-        # uneven chain split: a bare pallas_call under GSPMD would gather
-        # the full [C, n] state onto one device every transition — the
-        # well-partitioned XLA sweep below is strictly better here
-        # (pad n_chains to a device-count multiple to get the kernel)
     C, n = xc.shape
     grad_lp = _make_grad_lp(fg, xd)
     std = jnp.sqrt(1.0 / jnp.maximum(inv_mass, 1e-12))
@@ -400,7 +377,6 @@ def nuts_transition(fg: CompiledFG, cfg: NUTSConfig, state: "_hmc.HMCState",
     eps = jnp.exp(state.log_eps)
     xc, acc, depth, div = _nuts_sweep_batched(
         fg, k_n, state.xc, xd, eps, state.inv_mass, cfg.max_depth,
-        use_pallas=cfg.pallas, shard=cfg.shard,
     )
     state = state._replace(xc=xc, xd=xd)
     if adapt:
@@ -459,9 +435,6 @@ def _run_nuts(
     k_init, k_warm, k_samp = jax.random.split(key, 3)
     hcfg = cfg.to_hmc()
     state = _hmc.init_hmc_state(fg, k_init, hcfg, n_chains, shard)
-    if shard is not None:
-        # the Pallas trajectory kernel dispatches per-shard via shard_map
-        cfg = cfg.replace(shard=shard)
 
     def transition(state, key, adapt):
         return nuts_transition(fg, cfg, state, key, adapt)

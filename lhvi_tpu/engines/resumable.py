@@ -28,7 +28,7 @@ from lhvi_tpu.engines import nuts as _nuts
 def _to_host(v):
     """Materialize a (possibly process-spanning) array on every host.
 
-    Multi-host design choice (documented per VERDICT r3 #7): checkpoints
+    Multi-host design choice: checkpoints
     are GATHER-THEN-SAVE — the sharded chain state is all-gathered to
     every process (one [C, n] array; chain state is small relative to the
     model tables), orbax then coordinates the actual write across
@@ -89,9 +89,8 @@ def sample_checkpointed(
     """Run (or resume) a chunked sampling job; returns ``HMCMoments``.
 
     Warmup is chunk-dispatched and checkpointed exactly like sampling:
-    no single device execution exceeds ``chunk_size`` transitions (this
-    environment kills >~10 s executions at pod scale), and a run
-    preempted mid-warmup resumes from its last warmup chunk.
+    no single device execution exceeds ``chunk_size`` transitions, and a
+    run preempted mid-warmup resumes from its last warmup chunk.
 
     ``_interrupt_after=k`` stops after persisting sample chunk k (returns
     None); ``_interrupt_warmup_after=k`` stops after persisting warmup
@@ -109,9 +108,6 @@ def sample_checkpointed(
         cfg = cfg or _hmc.HMCConfig()
         fg, cfg = _hmc._ensure_mode_swap_plan(fg, cfg)
         if shard is not None:
-            if cfg.fused_logpot:
-                # non-quad fused kernel: reductions stay on the XLA path
-                cfg = cfg.replace(fused_logpot=False)
             # quad leapfrog dispatches per shard (same rule as run_hmc)
             cfg = cfg.replace(shard=shard)
         hcfg = cfg
@@ -123,10 +119,6 @@ def sample_checkpointed(
     elif engine == "nuts":
         cfg = cfg or _nuts.NUTSConfig()
         fg, cfg = _hmc._ensure_mode_swap_plan(fg, cfg)
-        if shard is not None:
-            # Pallas trajectory kernel dispatches per shard via shard_map
-            # (same rule as run_nuts)
-            cfg = cfg.replace(shard=shard)
         hcfg = cfg.to_hmc()
 
         def trans(state, k):

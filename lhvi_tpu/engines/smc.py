@@ -26,14 +26,10 @@ from typing import NamedTuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+from lhvi_tpu.utils import struct
 
 from lhvi_tpu.fg.compile import CompiledFG
-from lhvi_tpu.ops.resample import (
-    weight_pipeline,
-    _jnp_weight_pipeline,
-    systematic_parents,
-)
+from lhvi_tpu.ops.resample import systematic_parents, weight_pipeline
 
 Array = jax.Array
 
@@ -47,24 +43,18 @@ class SMCConfig:
     step_size: float = struct.field(pytree_node=False, default=0.25)
     ess_frac: float = struct.field(pytree_node=False, default=0.5)
     base_scale: float = struct.field(pytree_node=False, default=2.0)
-    # batched fused-quadratic rejuvenation moves (Pallas leapfrog on the
-    # blended tempered (J,h)) when the model is pure-quadratic. Off by
-    # default: measured on v5e (grid-10x10, N up to 65k) XLA's fusion of
-    # the vmapped autodiff leapfrog beats the padded Pallas kernel by
-    # ~10-20% here — SMC is reweight/resample-latency-bound, unlike the
-    # 65k-chain HMC loop where the VMEM-resident kernel wins.
+    # batched fused-quadratic rejuvenation moves (ops.leapfrog
+    # quad_leapfrog on the blended tempered (J,h)) when the model is
+    # pure-quadratic. Off by default: the anneal is bound by the
+    # per-temperature reweight/resample step, and the vmapped autodiff
+    # leapfrog keeps every model on one code path.
     # NOTE: this flag gates the DENSE path only. Pure-quad ELL (sparse)
     # models always take the fused sparse move: the explicit ∇ = h − Jx
-    # matvec is measured 3.3× the autodiff-gather move (docs/PERF.md
-    # round 4) with identical proposals, so there is no trade-off to
-    # expose — quad_moves=False does not opt ELL models back to
-    # move_batched.
+    # matvec avoids autodiff's scatter-adds through the gather with
+    # identical proposals, so there is no trade-off to expose —
+    # quad_moves=False does not opt ELL models back to move_batched.
     quad_moves: bool = struct.field(pytree_node=False, default=False)
-    # opt-in Pallas fused log-potential/leapfrog for NON-quad tempered
-    # moves (ops/logpot.py; at parity with the XLA path at measured
-    # scales — see logpot_leapfrog docstring)
-    fused_logpot: bool = struct.field(pytree_node=False, default=False)
-    # --- adaptive tempering (VERDICT r3 #3) -------------------------------
+    # --- adaptive tempering -------------------------------
     # CESS-targeted β schedule: each temperature picks the largest Δβ
     # whose CONDITIONAL ESS stays ≥ ess_target·N (bisection; ``n_temps`` stays
     # the STATIC scan cap so the program jits once — steps after β reaches
@@ -176,11 +166,6 @@ def run_smc(fg: CompiledFG, key: Array, cfg: SMCConfig = SMCConfig(),
     from lhvi_tpu.engines.hmc import _ensure_mode_swap_plan
 
     fg, cfg = _ensure_mode_swap_plan(fg, cfg)
-    if shard is not None and cfg.fused_logpot:
-        # a pallas_call does not SPMD-partition: keep rejuvenation moves
-        # on the XLA path so the particle axis stays distributed (same
-        # rule as the weight pipeline below and NUTSConfig.pallas)
-        cfg = cfg.replace(fused_logpot=False)
     k0, key = jax.random.split(key)
     mid = 0.5 * (fg.cont_lo + fg.cont_hi)
     kc, kd = jax.random.split(k0)
@@ -210,15 +195,8 @@ def run_smc(fg: CompiledFG, key: Array, cfg: SMCConfig = SMCConfig(),
             delta_lp = lp_full - lp_base
         inc = (beta - beta_prev) * delta_lp
         lw_unnorm = log_w + inc
-        # fused Pallas weight pipeline (north-star "resampler" kernel): one
-        # VMEM pass for normalize + ESS + cumulative weights. On a sharded
-        # particle axis the jnp path is used instead so XLA keeps the
-        # reductions as psums over the mesh (a pallas_call would force a
-        # full gather onto one device).
-        if shard is None:
-            lw_norm, cum, step_z, ess = weight_pipeline(lw_unnorm)
-        else:
-            lw_norm, cum, step_z, ess = _jnp_weight_pipeline(lw_unnorm, N)
+        # normalize + ESS + cumulative weights (psums on a sharded axis)
+        lw_norm, cum, step_z, ess = weight_pipeline(lw_unnorm)
         log_z = state.log_z + step_z
 
         # --- ESS-triggered systematic resampling ---------------------------
@@ -247,9 +225,8 @@ def run_smc(fg: CompiledFG, key: Array, cfg: SMCConfig = SMCConfig(),
             # cancel exactly in the MH ratio)
             def move_batched(km, ka, xc, xd):
                 # batched leapfrog on the tempered target via
-                # ops/logpot.py (XLA path by default; cfg.fused_logpot
-                # opts into the Pallas fused kernel). The base-measure
-                # constants dropped by logpot_leapfrog cancel in h0−h1.
+                # ops/logpot.py. The base-measure constants dropped by
+                # logpot_leapfrog cancel in h0−h1.
                 from lhvi_tpu.ops.logpot import logpot_leapfrog
 
                 mid = 0.5 * (fg.cont_lo + fg.cont_hi)
@@ -259,7 +236,6 @@ def run_smc(fg: CompiledFG, key: Array, cfg: SMCConfig = SMCConfig(),
                     fg, xc, p0, xd, jnp.ones(fg.n_cont), step,
                     cfg.n_leapfrog, beta=beta, base_mid=mid,
                     base_inv_s2=1.0 / (scale * scale),
-                    plan="auto" if cfg.fused_logpot else None,
                 )
                 h0 = -lp0 + 0.5 * jnp.sum(p0 * p0, -1)
                 h1 = -lp1 + 0.5 * jnp.sum(p1 * p1, -1)
@@ -272,20 +248,21 @@ def run_smc(fg: CompiledFG, key: Array, cfg: SMCConfig = SMCConfig(),
             def move_quad(km, ka, xc):
                 # the tempered target of a pure-quadratic model is itself
                 # quadratic — β·(J,h) + (1−β)·(I/s², mid/s²) — so all
-                # particles ride the fused (MXU/Pallas) leapfrog at once,
-                # like hmc._hmc_step_batched; constants cancel in the MH
-                # ratio
+                # particles ride the fused quad leapfrog at once, like
+                # hmc._hmc_step_batched; constants cancel in the MH ratio
                 from lhvi_tpu.ops.leapfrog import quad_leapfrog
 
                 s2 = cfg.base_scale ** 2
                 n = fg.n_cont
                 Jb = beta * fg.quad_J + (1.0 - beta) * jnp.eye(n) / s2
                 hb = beta * fg.quad_h + (1.0 - beta) * mid / s2
+                hi = jax.lax.Precision.HIGHEST
                 lp = lambda X: (
-                    -0.5 * jnp.einsum("ci,ij,cj->c", X, Jb, X) + X @ hb
+                    -0.5 * jnp.einsum("ci,ij,cj->c", X, Jb, X, precision=hi)
+                    + jnp.dot(X, hb, precision=hi)
                 )
                 p0 = jax.random.normal(km, xc.shape)
-                # shard: the Pallas kernel dispatches one instance per
+                # shard: the leapfrog kernel dispatches one instance per
                 # device (particles never communicate inside a move)
                 x1, p1 = quad_leapfrog(
                     xc, p0, Jb, hb, jnp.ones(n), step,
@@ -307,19 +284,16 @@ def run_smc(fg: CompiledFG, key: Array, cfg: SMCConfig = SMCConfig(),
                 # leapfrog (explicit ∇ = h − Jx matvec; autodiff through
                 # the gather would lower to scatter-adds on the backward
                 # pass). Endpoint gradients give both energies for free.
-                # BANDED targets ride the DIA whole-trajectory proposal
-                # instead. The β-blend happens in LATENT space before
-                # the gather-embedding, so the prior's (1−β)/s² diagonal
+                # BANDED targets ride the DIA proposal instead. The
+                # β-blend happens in LATENT space before the
+                # gather-embedding, so the prior's (1−β)/s² diagonal
                 # never lands on evidence gap lanes (the sentinel column
-                # zeroes them). Note: the TPU proposal's momenta come
-                # from the in-kernel PRNG — a different stream than the
-                # jax.random fallback (ops/dia.py).
-                from lhvi_tpu.ops.dia import DIA_MAX_EMB, dia_hmc_proposal
+                # zeroes them).
+                from lhvi_tpu.ops.dia import dia_hmc_proposal
                 from lhvi_tpu.ops.leapfrog import ell_quad_leapfrog
 
                 s2 = cfg.base_scale ** 2
-                if (fg.quad_dia_offsets is not None
-                        and fg.quad_dia_w.shape[1] <= DIA_MAX_EMB):
+                if fg.quad_dia_offsets is not None:
                     diag_b = beta * fg.quad_diag + (1.0 - beta) / s2
                     hb = beta * fg.quad_h + (1.0 - beta) * mid / s2
                     x1, log_acc = dia_hmc_proposal(
@@ -327,7 +301,6 @@ def run_smc(fg: CompiledFG, key: Array, cfg: SMCConfig = SMCConfig(),
                         beta * fg.quad_dia_w, hb, jnp.ones(fg.n_cont),
                         step, cfg.n_leapfrog,
                         pos=fg.quad_dia_pos, inv=fg.quad_dia_inv,
-                        shard=shard,
                     )
                     ok = jnp.log(jax.random.uniform(ka, (N,))) < log_acc
                     return jnp.where(ok[:, None], x1, xc), ok
@@ -453,7 +426,7 @@ def run_smc(fg: CompiledFG, key: Array, cfg: SMCConfig = SMCConfig(),
                 # small). A symmetric pull toward target_accept would
                 # INFLATE the step on easy targets until acceptance drops
                 # to the target by construction — measured +66% log-Z
-                # error on the LDS config (docs/PERF.md round 4).
+                # error on the LDS config.
                 delta = jnp.where(
                     acc < cfg.target_accept, acc - cfg.target_accept,
                     jnp.maximum(acc - 0.95, 0.0),

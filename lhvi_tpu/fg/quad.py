@@ -1,4 +1,4 @@
-"""Quadratic-form extraction: the MXU fast path.
+"""Quadratic-form extraction: the matmul fast path.
 
 Any factor whose log-potential is quadratic in its continuous arguments
 (Gaussian, linear-Gaussian, quadratic, XY) and touches no discrete latents
@@ -7,7 +7,8 @@ can be folded into a single information form
     Σ_f scale_f · log φ_f(x) = −½ xᵀ J x + hᵀ x + c
 
 over the continuous latent vector. ``log p`` and ``∇ log p`` then evaluate
-as one matmul each — MXU work instead of gather/scatter chains — which is
+as one matmul each — dense matrix work instead of gather/scatter chains —
+which is
 the dominant cost of HMC/NUTS/SMC on Gaussian-heavy models. Evidence is
 conditioned into (h, c); lifted orbit counts scale each factor's
 contribution.
@@ -70,7 +71,7 @@ def accumulate_information_ell(
     """Sparse information form for ``n_cont`` past the dense cap.
 
     Same semantics as :func:`accumulate_information_form`, but J is
-    returned in ELL (padded-neighbor) layout — the TPU-friendly sparse
+    returned in ELL (padded-neighbor) layout — a batch-friendly sparse
     format: ``J @ x`` is one ``[n, D]`` gather·multiply·sum, no scatters,
     static shapes (SURVEY.md §9 hard part (a)). Grid/chain Gaussian MRFs
     have D ≤ ~4, so storage is O(n·D) vs the dense O(n²) that hits 1 GB

@@ -11,7 +11,7 @@ evidence bucket) and factor colors from potential identity, then iterate
 to fixpoint. The groups are RV-orbits / factor-orbits of the automorphism
 structure the refinement detects.
 
-TPU redesign (SURVEY.md §9 stage 5): this stays on the **host** — it is
+Design (SURVEY.md §9 stage 5): this stays on the **host** — it is
 symbolic and unjittable — and emits the *compiled lifted IR*: one
 representative factor per factor-orbit with ``scale = |orbit|``, variable
 slots tied per RV-orbit, and per-slot orbit counts for the entropy terms.

@@ -1,20 +1,17 @@
-"""Trajectory-resident Pallas leapfrog for BANDED (DIA) quadratic targets.
+"""Banded (DIA) form of the sparse quadratic target.
 
-VERDICT r4 #7 / docs/PERF.md "ELL sparse quad path": the fused ELL matvec
-runs at ~85% of HBM speed-of-light, so the only remaining lever at grid
-scale is TRAFFIC — keeping the whole n-step trajectory's state in VMEM.
-An in-kernel ELL gather is blocked by Mosaic ("Multiple source vregs
-along gather dimension"), but grid/chain/banded information matrices
-have a handful of DIAGONALS: J x = diag·x + Σ_k w_k · shift(x, o_k) for
-a small static offset set {o_k}. Static shifts need no gather — Mosaic
-lowers ``pltpu.roll`` on the lane axis directly — so the whole
-integration runs in one kernel: positions/momenta round-trip HBM ONCE
-per proposal instead of once per step.
+Grid/chain/banded information matrices have a handful of DIAGONALS:
+J x = diag·x + Σ_k w_k · shift(x, o_k) for a small static offset set
+{o_k}. The matvec is then K static shift-multiply-accumulates with no
+gathers, where the ELL form (``ops.leapfrog.ell_matvec``) gathers D
+neighbours per row. Whether DIA earns its place beside ELL on the GPU is
+an open design question (ROADMAP design item 2); ``HMCConfig.dia_kernel``
+switches between the two.
 
 Correctness of the circular roll: an entry ``w_k[i] ≠ 0`` implies the
-edge (i, i+o_k) exists, hence ``0 ≤ i+o_k < n ≤ n_pad`` — every
-wrapped-around lane is multiplied by a structural zero, so no masking
-is needed (asserted by construction in ``ell_to_dia``).
+edge (i, i+o_k) exists, hence ``0 ≤ i+o_k < n`` — every wrapped-around
+lane is multiplied by a structural zero, so no masking is needed
+(asserted by construction in ``ell_to_dia``).
 
 The reference (SURVEY.md §3.1) has no sparse-matrix machinery at all —
 its dense Gaussian tooling stops at a few thousand variables.
@@ -22,28 +19,9 @@ its dense Gaussian tooling stops at a few thousand variables.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import jax
 import jax.numpy as jnp
-
-_LANE = 128
-
-# largest embedded width the whole-trajectory kernels fit in VMEM for
-# (measured: [16, 16384] blocks fill ~16 MB with double-buffering and the
-# loop-body temporaries; [8, 32768] is the same budget; 256²-grid widths
-# overflow even at the minimum 8-sublane block → those stay on the ELL
-# gather path)
-DIA_MAX_EMB = 32 * 1024
-
-
-def _auto_bc(n_pad: int) -> int:
-    return 16 if n_pad <= 16 * 1024 else 8
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def ell_to_dia(col: np.ndarray, w: np.ndarray, pos: np.ndarray = None,
@@ -107,8 +85,7 @@ def _embed(a, pos, n_emb: int):
 def pos_to_inv(pos: np.ndarray, n: int) -> np.ndarray:
     """Inverse embedding index: i32 [n_emb] mapping each embedded lane to
     its latent index, with the sentinel ``n`` at gap (evidence) lanes —
-    lets ``_embed_gather`` express the scatter as a GATHER (TPU scatters
-    are an order of magnitude slower than gathers on [C, 13k] rows)."""
+    lets ``_embed_gather`` express the scatter as a GATHER."""
     pos = np.asarray(pos)
     n_emb = int(pos.max()) + 1
     inv = np.full(n_emb, n, np.int32)
@@ -152,11 +129,10 @@ def _lp(x, h, g):
 
 def _jnp_dia_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
                       n_steps: int):
-    """Reference/fallback (CPU meshes): same position-Verlet composition
-    as ``ops.leapfrog.ell_quad_leapfrog`` with the DIA matvec. Returns
+    """Same position-Verlet composition as
+    ``ops.leapfrog.ell_quad_leapfrog`` with the DIA matvec. Returns
     ``(x1, p1, lp0, lp1)`` — endpoint log-potentials (sans constant)
-    instead of gradients, matching the Pallas kernel's in-kernel
-    reduction."""
+    instead of gradients."""
 
     def matvec(x):
         return dia_matvec(x, diag, offsets, wdia)
@@ -181,139 +157,19 @@ def _jnp_dia_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
     return x, p1, lp0, _lp(x, h, g1)
 
 
-def _dia_leapfrog_kernel(eps_ref, x_ref, p_ref, diag_ref, wd_ref, h_ref,
-                         im_ref, xo_ref, po_ref, lp0_ref, lp1_ref, *,
-                         n_steps: int, offsets: tuple):
-    """Whole-trajectory position-Verlet on a banded target, VMEM-resident.
-
-    x/p blocks [BC, n_pad]; diag/h/im [1, n_pad]; wd [K, n_pad]. Each
-    matvec is K+1 VPU multiply-accumulates + K lane-rolls — no MXU, no
-    gathers. The endpoint log-potentials reduce IN-KERNEL to [BC, 128]
-    broadcasts (lane 0 is the value), so HBM sees two [BC, n_pad]
-    stores per proposal, not four."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    x = x_ref[:]
-    p = p_ref[:]
-    diag = diag_ref[:]
-    h = h_ref[:]
-    im = im_ref[:]
-    eps = eps_ref[0]
-
-    bc, n_pad = x.shape
-
-    def matvec(x):
-        y = x * diag
-        for k, o in enumerate(offsets):
-            # pltpu.roll wants a non-negative shift; roll left by o ≡
-            # roll right by n_pad − o (static)
-            y = y + wd_ref[k, :][None, :] * pltpu.roll(
-                x, (-o) % n_pad, axis=1)
-        return y
-
-    def lp(x, g):
-        v = 0.5 * jnp.sum(x * (h + g), axis=1)
-        return jnp.broadcast_to(v[:, None], (bc, 128))
-
-    g0 = h - matvec(x)
-    lp0_ref[:] = lp(x, g0)
-    m = p + 0.5 * eps * g0
-
-    def body(_, carry):
-        x, m = carry
-        x = x + eps * im * m
-        g = h - matvec(x)
-        m = m + eps * g
-        return (x, m)
-
-    x, m = jax.lax.fori_loop(0, n_steps - 1, body, (x, m))
-    x = x + eps * im * m
-    g1 = h - matvec(x)
-    xo_ref[:] = x
-    po_ref[:] = m + 0.5 * eps * g1
-    lp1_ref[:] = lp(x, g1)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("offsets", "n_steps", "block_chains"))
-def _pallas_dia_leapfrog(x, p, diag, wdia, h, inv_mass, eps,
-                         offsets: tuple, n_steps: int,
-                         block_chains: int = 0):
-    # block size: [16, 16k]-class blocks fill the 16 MB VMEM budget with
-    # double-buffering + loop temporaries (measured); _auto_bc halves the
-    # block beyond 16k lanes, and widths past DIA_MAX_EMB don't fit at all
-    # (callers gate on it)
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    C, n = x.shape
-    K = len(offsets)
-    n_pad = _round_up(max(n, 1), _LANE)
-    c_pad = _round_up(max(C, 1), 8)
-    bc = min(block_chains or _auto_bc(n_pad), c_pad)
-    c_pad = _round_up(c_pad, bc)
-
-    xp_ = jnp.zeros((c_pad, n_pad), x.dtype).at[:C, :n].set(x)
-    pp_ = jnp.zeros((c_pad, n_pad), p.dtype).at[:C, :n].set(p)
-    dg_ = jnp.zeros((1, n_pad), jnp.float32).at[0, :n].set(diag)
-    wd_ = jnp.zeros((max(K, 1), n_pad), jnp.float32).at[:K, :n].set(wdia)
-    hp_ = jnp.zeros((1, n_pad), jnp.float32).at[0, :n].set(h)
-    imp = jnp.zeros((1, n_pad), jnp.float32).at[0, :n].set(inv_mass)
-    eps_arr = jnp.asarray([eps], jnp.float32)
-
-    grid = (c_pad // bc,)
-    kernel = functools.partial(_dia_leapfrog_kernel, n_steps=n_steps,
-                               offsets=offsets)
-    row = lambda: pl.BlockSpec((1, n_pad), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM)
-    blk = lambda: pl.BlockSpec((bc, n_pad), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM)
-    lpb = lambda: pl.BlockSpec((bc, 128), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM)
-    out = jax.ShapeDtypeStruct((c_pad, n_pad), jnp.float32)
-    lpo = jax.ShapeDtypeStruct((c_pad, 128), jnp.float32)
-    xo, po, lp0, lp1 = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            blk(), blk(), row(),
-            pl.BlockSpec((max(K, 1), n_pad), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            row(), row(),
-        ],
-        out_specs=[blk(), blk(), lpb(), lpb()],
-        out_shape=[out, out, lpo, lpo],
-        cost_estimate=pl.CostEstimate(
-            # (K+1) MACs per element per matvec, n_steps+1 matvecs
-            flops=2 * (K + 1) * c_pad * n_pad * (n_steps + 1),
-            bytes_accessed=4 * (4 * c_pad * n_pad + (K + 3) * n_pad),
-            transcendentals=0,
-        ),
-    )(eps_arr, xp_, pp_, dg_, wd_, hp_, imp)
-    return xo[:C, :n], po[:C, :n], lp0[:C, 0], lp1[:C, 0]
-
-
 def dia_quad_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
-                      n_steps: int, pos=None, shard=None):
+                      n_steps: int, pos=None):
     """Batched leapfrog on a BANDED quadratic target.
 
     Returns ``(x1, p1, lp0, lp1)`` — endpoint positions/momenta plus the
     endpoint log-potentials WITHOUT the constant (lp = ½·x·(h+g); add
-    ``quad_c`` outside; it cancels in the MH ratio anyway). Unlike
-    ``ell_quad_leapfrog``'s gradient outputs, the lp reduction happens
-    in-kernel, halving the kernel's HBM store traffic.
+    ``quad_c`` outside; it cancels in the MH ratio anyway).
 
-    Pallas whole-trajectory kernel on TPU (state resident in VMEM for
-    all n_steps — the traffic win the ELL path cannot express in-kernel);
-    jnp fallback elsewhere. ``pos`` (declaration-order embedding) is
-    applied ONCE around the whole trajectory: the integrator runs in the
-    embedded space, where evidence lanes are inert (diag = h = im = 0 →
-    zero gradient and zero drift) and contribute nothing to lp, so the
-    per-proposal embedding cost is one scatter + two gathers, not one
-    per step. ``shard`` dispatches one kernel instance per device via
-    ``shard_map`` (chains never communicate inside a proposal),
-    mirroring ``quad_leapfrog``.
+    ``pos`` (declaration-order embedding) is applied ONCE around the whole
+    trajectory: the integrator runs in the embedded space, where evidence
+    lanes are inert (diag = h = im = 0 → zero gradient and zero drift) and
+    contribute nothing to lp, so the per-proposal embedding cost is one
+    scatter + two gathers, not one per step.
     """
     if pos is not None:
         n_emb = wdia.shape[1]
@@ -322,28 +178,8 @@ def dia_quad_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
         diag = _embed(diag, pos, n_emb)
         h = _embed(h, pos, n_emb)
         inv_mass = _embed(inv_mass, pos, n_emb)
-    if n_steps == 0:
-        g0 = h[None] - dia_matvec(x, diag, offsets, wdia)
-        lp0 = _lp(x, h, g0)
-        out = (x, p, lp0, lp0)
-    elif jax.default_backend() != "tpu":
-        out = _jnp_dia_leapfrog(x, p, diag, offsets, wdia, h, inv_mass,
-                                eps, n_steps)
-    else:
-        wdia_a = jnp.asarray(wdia)
-        if shard is not None:
-            from lhvi_tpu.parallel.mesh import shard_map_chains
-
-            fn = shard_map_chains(
-                lambda x_, p_, dg_, wd_, h_, im_, eps_:
-                _pallas_dia_leapfrog(x_, p_, dg_, wd_, h_, im_, eps_,
-                                     offsets, n_steps),
-                shard, n_sharded_args=2,
-            )
-            out = fn(x, p, diag, wdia_a, h, inv_mass, eps)
-        else:
-            out = _pallas_dia_leapfrog(x, p, diag, wdia_a, h, inv_mass,
-                                       eps, offsets, n_steps)
+    out = _jnp_dia_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
+                            n_steps)
     if pos is not None:
         # lp is embedding-invariant (gap lanes are zero); only the state
         # arrays gather back to latent coordinates
@@ -351,167 +187,19 @@ def dia_quad_leapfrog(x, p, diag, offsets, wdia, h, inv_mass, eps,
     return out
 
 
-def _dia_proposal_kernel(seed_ref, eps_ref, x_ref, diag_ref, wd_ref,
-                         h_ref, im_ref, std_ref, xo_ref, lacc_ref, *,
-                         n_steps: int, offsets: tuple):
-    """One complete HMC proposal in-kernel: momentum generation (hardware
-    PRNG + Box–Muller), whole-trajectory position-Verlet, endpoint
-    energies, log-accept — HBM sees ONE [BC, n_pad] read (x) and one
-    write (x1) per proposal.
-
-    Motivation (measured, docs/PERF.md round 5): at 128×128-grid scale
-    `jax.random.normal` for the [1024, 16k] momenta costs 3.4 ms/sample
-    — 70% of the whole sampling step — while the integration itself is
-    ~0.1 ms. Threefry is compute-bound on the VPU; the TPU's native PRNG
-    generates the same bits budget at memory speed. Momenta are drawn
-    per (grid-instance, seed) — deterministic for a fixed seed, but a
-    DIFFERENT stream than the jax.random fallback (same posterior, not
-    bitwise-comparable runs)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    import jax.lax as lax
-
-    x = x_ref[:]
-    diag = diag_ref[:]
-    h = h_ref[:]
-    im = im_ref[:]
-    std = std_ref[:]
-    eps = eps_ref[0]
-    bc, n_pad = x.shape
-
-    pltpu.prng_seed(seed_ref[0] + pl_program_id())
-    half = n_pad // 2  # caller pads n_pad to a multiple of 2·128
-
-    def uniform01(shape):
-        # uint32 → (0, 1]: mantissa-fill trick gives [1, 2), shift to
-        # (0, 1] so log() is always finite
-        bits = pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.uint32)
-        mant = (bits >> 9) | jnp.uint32(0x3F800000)
-        return 2.0 - pltpu.bitcast(mant, jnp.float32)
-
-    # PAIRED Box–Muller: one (r, θ) draw yields two exact independent
-    # normals (r·cosθ, r·sinθ) — halves the log/sqrt/trig budget, which
-    # dominates the kernel at small n_steps
-    u1 = uniform01((bc, half))
-    u2 = uniform01((bc, half))
-    r = jnp.sqrt(-2.0 * jnp.log(u1))
-    t = (2.0 * np.float32(np.pi)) * u2
-    z = jnp.concatenate([r * jnp.cos(t), r * jnp.sin(t)], axis=1)
-    p0 = std * z
-
-    def matvec(x):
-        y = x * diag
-        for k, o in enumerate(offsets):
-            y = y + wd_ref[k, :][None, :] * pltpu.roll(
-                x, (-o) % n_pad, axis=1)
-        return y
-
-    def lpv(x, g):
-        return 0.5 * jnp.sum(x * (h + g), axis=1)
-
-    def kev(p):
-        return 0.5 * jnp.sum(im * p * p, axis=1)
-
-    g0 = h - matvec(x)
-    lp0 = lpv(x, g0)
-    ke0 = kev(p0)
-    m = p0 + 0.5 * eps * g0
-
-    def body(_, carry):
-        x, m = carry
-        x = x + eps * im * m
-        g = h - matvec(x)
-        m = m + eps * g
-        return (x, m)
-
-    x, m = lax.fori_loop(0, n_steps - 1, body, (x, m))
-    x = x + eps * im * m
-    g1 = h - matvec(x)
-    p1 = m + 0.5 * eps * g1
-    la = jnp.minimum(0.0, (lpv(x, g1) - lp0) + (ke0 - kev(p1)))
-    xo_ref[:] = x
-    lacc_ref[:] = jnp.broadcast_to(la[:, None], (bc, 128))
-
-
-def pl_program_id():
-    from jax.experimental import pallas as pl
-
-    return pl.program_id(0)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("offsets", "n_steps", "block_chains"))
-def _pallas_dia_proposal(x, diag, wdia, h, inv_mass, std, eps, seed,
-                         offsets: tuple, n_steps: int,
-                         block_chains: int = 0):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    C, n = x.shape
-    K = len(offsets)
-    # 2·LANE so the paired Box–Muller halves stay lane-aligned
-    n_pad = _round_up(max(n, 1), 2 * _LANE)
-    c_pad = _round_up(max(C, 1), 8)
-    bc = min(block_chains or _auto_bc(n_pad), c_pad)
-    c_pad = _round_up(c_pad, bc)
-
-    xp_ = jnp.zeros((c_pad, n_pad), x.dtype).at[:C, :n].set(x)
-    dg_ = jnp.zeros((1, n_pad), jnp.float32).at[0, :n].set(diag)
-    wd_ = jnp.zeros((max(K, 1), n_pad), jnp.float32).at[:K, :n].set(wdia)
-    hp_ = jnp.zeros((1, n_pad), jnp.float32).at[0, :n].set(h)
-    imp = jnp.zeros((1, n_pad), jnp.float32).at[0, :n].set(inv_mass)
-    sd_ = jnp.zeros((1, n_pad), jnp.float32).at[0, :n].set(std)
-    eps_arr = jnp.asarray([eps], jnp.float32)
-    seed_arr = jnp.asarray([seed], jnp.int32)
-
-    grid = (c_pad // bc,)
-    kernel = functools.partial(_dia_proposal_kernel, n_steps=n_steps,
-                               offsets=offsets)
-    row = lambda: pl.BlockSpec((1, n_pad), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM)
-    blk = lambda: pl.BlockSpec((bc, n_pad), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM)
-    xo, lacc = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            blk(), row(),
-            pl.BlockSpec((max(K, 1), n_pad), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            row(), row(), row(),
-        ],
-        out_specs=[blk(),
-                   pl.BlockSpec((bc, 128), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM)],
-        out_shape=[jax.ShapeDtypeStruct((c_pad, n_pad), jnp.float32),
-                   jax.ShapeDtypeStruct((c_pad, 128), jnp.float32)],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * (K + 1) * c_pad * n_pad * (n_steps + 1),
-            bytes_accessed=4 * (2 * c_pad * n_pad + (K + 4) * n_pad),
-            transcendentals=3 * c_pad * n_pad,  # log, cos, sqrt
-        ),
-    )(seed_arr, eps_arr, xp_, dg_, wd_, hp_, imp, sd_)
-    return xo[:C, :n], lacc[:C, 0]
-
-
 def dia_hmc_proposal(k_mom, xc, diag, offsets, wdia, h, inv_mass, eps,
-                     n_steps: int, pos=None, inv=None, shard=None):
+                     n_steps: int, pos=None, inv=None):
     """One full HMC proposal on a banded target: sample momenta,
     integrate the whole trajectory, return ``(x1 [C, n], log_acc [C])``.
 
-    This is the fused fast path the sampler uses: everything between the
-    RNG draw and the accept test runs in EMBEDDED coordinates, so the
-    per-proposal embedding cost is ONE gather of x in and one gather of
-    x1 out — momenta are sampled directly in embedded space (their gap
-    lanes get std 0 via the zero inv_mass lanes), the kinetic energies
-    reduce over embedded arrays (gap lanes contribute 0), and the
-    log-potentials come back from the kernel's in-kernel reduction. The
-    quad constant cancels in the ratio. All embeds are gathers via
-    ``inv`` (``pos_to_inv``) — a TPU scatter on [C, 13k] rows costs ~10×
-    a gather and was half the measured fixed overhead of the previous
-    scatter-based formulation (docs/PERF.md round 5).
+    Everything between the RNG draw and the accept test runs in EMBEDDED
+    coordinates, so the per-proposal embedding cost is ONE gather of x in
+    and one gather of x1 out — momenta are sampled directly in embedded
+    space (their gap lanes get std 0 via the zero inv_mass lanes), the
+    kinetic energies reduce over embedded arrays (gap lanes contribute 0),
+    and the log-potentials come back from the integrator. The quad
+    constant cancels in the ratio. All embeds are gathers via ``inv``
+    (``pos_to_inv``) rather than scatters.
     """
     if pos is not None:
         x = _embed_gather(xc, inv)
@@ -522,49 +210,11 @@ def dia_hmc_proposal(k_mom, xc, diag, offsets, wdia, h, inv_mass, eps,
         x, im = xc, inv_mass
     # gap lanes: im = 0 → std = 0 → momentum 0 → lane inert end-to-end
     std = jnp.where(im > 0, jnp.sqrt(1.0 / jnp.maximum(im, 1e-12)), 0.0)
-    if n_steps == 0 or jax.default_backend() != "tpu":
-        # fallback integrates with jax.random momenta (different stream
-        # than the in-kernel PRNG; same posterior)
-        p0 = std[None, :] * jax.random.normal(k_mom, x.shape)
-        x1, p1, lp0, lp1 = dia_quad_leapfrog(
-            x, p0, diag, offsets, wdia, h, im, eps, n_steps)
-        ke = lambda p: 0.5 * jnp.sum(im[None, :] * p * p, axis=-1)
-        log_acc = jnp.minimum(0.0, (lp1 - lp0) + (ke(p0) - ke(p1)))
-    else:
-        wdia_a = jnp.asarray(wdia)
-        # scalar seed from the step key — one tiny threefry draw instead
-        # of 16M of them
-        seed = jax.random.randint(k_mom, (), 0, jnp.iinfo(jnp.int32).max,
-                                  dtype=jnp.int32)
-        if shard is not None:
-            from lhvi_tpu.parallel.mesh import chain_axes, shard_map_chains
-
-            axes = chain_axes(shard)
-            mesh_shape = shard.mesh.shape
-
-            def per_shard(x_, dg_, wd_, h_, im_, std_, eps_, seed_):
-                # distinct PRNG stream per device (the kernel already
-                # offsets by grid instance; offset by mesh position too)
-                off = jnp.zeros((), jnp.int32)
-                for a in axes:
-                    off = off * mesh_shape[a] + jax.lax.axis_index(a)
-                return _pallas_dia_proposal(
-                    x_, dg_, wd_, h_, im_, std_, eps_,
-                    seed_ + off * jnp.int32(1000003), offsets, n_steps)
-
-            def no_axis(x_, dg_, wd_, h_, im_, std_, eps_, seed_):
-                # uneven-split fallback runs outside shard_map (no
-                # axis_index available — single stream is correct there)
-                return _pallas_dia_proposal(
-                    x_, dg_, wd_, h_, im_, std_, eps_, seed_,
-                    offsets, n_steps)
-
-            fn = shard_map_chains(per_shard, shard, n_sharded_args=1,
-                                  fallback=no_axis)
-            x1, log_acc = fn(x, diag, wdia_a, h, im, std, eps, seed)
-        else:
-            x1, log_acc = _pallas_dia_proposal(
-                x, diag, wdia_a, h, im, std, eps, seed, offsets, n_steps)
+    p0 = std[None, :] * jax.random.normal(k_mom, x.shape)
+    x1, p1, lp0, lp1 = _jnp_dia_leapfrog(x, p0, diag, offsets, wdia, h, im,
+                                         eps, n_steps)
+    ke = lambda p: 0.5 * jnp.sum(im[None, :] * p * p, axis=-1)
+    log_acc = jnp.minimum(0.0, (lp1 - lp0) + (ke(p0) - ke(p1)))
     log_acc = jnp.where(jnp.isfinite(log_acc), log_acc, -jnp.inf)
     if pos is not None:
         x1 = x1[..., pos]

@@ -1,462 +1,42 @@
-"""Fused Pallas log-potential + leapfrog for NON-quadratic targets.
+"""Batched leapfrog on (possibly tempered) NON-quadratic targets.
 
-BASELINE north-star "Pallas log-potential … kernels" (SURVEY.md §3.2 /
-§9 stage 7; reference mount empty — the reference is single-thread numpy
-and has no analogue): the continuous-part energy
+The continuous-part energy
 
     E(x) = β·[ x·h − ½ xJx + Σ_buckets Σ_f w_f · log φ_f(slots_f(x)) ]
            + (1−β)·[ −½ Σ_i (x_i − mid_i)² / s_i² ]
 
-and its gradient are evaluated ENTIRELY inside one Pallas kernel, and the
-whole n-step leapfrog integration for a tile of chains runs there too —
-positions/momenta stay in VMEM across substeps, factor parameters and
-slot-gather matrices stay resident, and each substep costs a handful of
-small MXU matmuls + unrolled VPU potential math. This removes every
-per-substep HBM round trip of state, gathers, and per-factor
-log-potential intermediates that the XLA op-by-op path pays.
-
-Design notes (TPU-first, not a translation):
-- Factor slots are gathered with ONE-HOT MATMULS ``x @ G`` (G f32
-  [n_cont, F], exact for one-hot in f32) because Mosaic has no reliable
-  in-kernel dynamic gather; the reverse scatter-add of slot gradients is
-  ``ds @ Gᵀ`` with Gᵀ passed explicitly. This caps the kernel to models
-  whose G/param footprint fits VMEM (see :func:`logpot_plan`'s
-  ``max_bytes`` gate) — exactly the lifted/relational hybrids (e.g. the
-  robot-mapping HMLN) whose non-quadratic MLN potentials are the
-  flagship non-quad workload. Larger models fall back to the XLA batched
-  path (``CompiledFG.log_prob_cont_batched``), which remains exact.
-- Potentials are evaluated through their factor-minor *planar* kernels
-  (``Potential.kernel_planar``): factors ride the lane dimension,
-  per-slot gradients come from ``jax.vjp`` traced inside the kernel
-  body (pure elementwise math — no custom backward pass needed).
-- Discrete slot values are fixed during a continuous move; they are
-  gathered once per proposal outside the kernel and streamed in as
-  [chains, F] blocks.
-- β (inverse temperature) and the diagonal base measure make the same
-  kernel serve plain HMC (β=1, no base) and annealed-SMC rejuvenation
-  (tempered target), mirroring ``engines.smc._base_log_prob`` up to
-  x-independent constants (which cancel in MH ratios).
-
-Returned energies ``lp0/lp1`` equal ``β·log_prob_cont_batched + (1−β)·
-base`` up to an x-independent constant — exact for MH accept ratios.
+and its gradient come from ``CompiledFG.log_prob_cont_batched`` under
+``jax.grad``; XLA fuses each bucket's gather and kernel math for the whole
+chain batch. β (inverse temperature) and the diagonal base measure make the
+same integrator serve plain HMC (β=1, no base) and annealed-SMC
+rejuvenation (tempered target), mirroring ``engines.smc._base_log_prob`` up
+to x-independent constants (which cancel in MH ratios).
 """
 
 from __future__ import annotations
 
-import functools
-import weakref
-from typing import Any, Dict, List, Optional, Tuple
-
-import numpy as np
 import jax
 import jax.numpy as jnp
 
-Array = jax.Array
-_LANE = 128
 
+def logpot_leapfrog(fg, x, p, xd, inv_mass, eps, n_steps: int,
+                    beta=None, base_mid=None, base_inv_s2=None):
+    """Batched merged half-kick leapfrog on a (possibly tempered)
+    non-quadratic target.
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _pad_cols(a: np.ndarray, n: int, repeat_first: bool = True) -> np.ndarray:
-    """Pad the LAST axis to n columns (repeat col 0 to keep kernels finite,
-    or zeros when ``repeat_first=False``)."""
-    if a.shape[-1] == n:
-        return a
-    pad = n - a.shape[-1]
-    if repeat_first and a.shape[-1]:
-        fill = np.repeat(a[..., :1], pad, axis=-1)
-    else:
-        fill = np.zeros(a.shape[:-1] + (pad,), a.dtype)
-    return np.concatenate([a, fill], axis=-1)
-
-
-class _BucketPlan:
-    """Per-bucket static recipe + device arrays for the fused kernel."""
-
-    def __init__(self, bucket_index: int, pattern, planar, G, GT, cc,
-                 pp, w, disc_slots):
-        self.bucket_index = bucket_index
-        self.pattern = pattern          # tuple of bools (original order)
-        self.planar = planar            # factor-minor kernel
-        self.G = G                      # per cont slot: [n_pad, F_pad] | None
-        self.GT = GT                    # per cont slot: [F_pad, n_pad] | None
-        self.cc = cc                    # per cont slot: [1, F_pad]
-        self.pp = pp                    # dict name -> [k, F_pad]
-        self.w = w                      # [1, F_pad] (0 on padding)
-        self.disc_slots = disc_slots    # number of discrete slots
-
-
-class LogpotPlan:
-    """Host-side compilation of ``CompiledFG``'s xc-dependent buckets into
-    the fused-kernel layout. Built once per trace (numpy mirrors from
-    ``fg.meta.np_buckets``); ``None``-able via :func:`logpot_plan`."""
-
-    def __init__(self, fg, n_pad: int, buckets: List[_BucketPlan],
-                 vmem_bytes: int):
-        self.n_cont = fg.n_cont
-        self.n_pad = n_pad
-        self.buckets = buckets
-        self.vmem_bytes = vmem_bytes
-        self.has_quad = bool(fg.has_quad)
-
-
-def logpot_plan(fg, max_bytes: int = 8 << 20,
-                block_chains: int = 256) -> Optional[LogpotPlan]:
-    """Build the fused-kernel plan, or None when the model is ineligible:
-    no xc-dependent buckets, a bucket without a planar kernel, or a
-    VMEM footprint above ``max_bytes``."""
-    idx = fg.cont_bucket_idx
-    if not idx or fg.n_cont == 0:
-        return None
-    if getattr(fg, "quad_sparse", False):
-        # the kernel's quad term is a dense VMEM matmul; ELL-sparse models
-        # (n_cont past the dense cap) stay on the XLA matvec path
-        return None
-    n_pad = _round_up(max(fg.n_cont, 1), _LANE)
-    total = 0
-    if fg.has_quad:
-        total += 4 * (n_pad * n_pad + n_pad)
-    plans: List[_BucketPlan] = []
-    for i in idx:
-        b = fg.buckets[i]
-        if b.kernel_planar is None:
-            return None
-        np_b = fg.meta.np_buckets[i]
-        F = b.n_factors
-        F_pad = _round_up(F, _LANE)
-        a = len(b.pattern)
-        Gs, GTs, ccs = [], [], []
-        ci = di = 0
-        disc_slots = 0
-        for is_cont in b.pattern:
-            if not is_cont:
-                di += 1
-                disc_slots += 1
-                total += 4 * block_chains * F_pad  # streamed value block
-                continue
-            mask = np_b["cont_mask"][:, ci] > 0
-            cidx = np_b["cont_idx"][:, ci]
-            const = np_b["cont_const"][:, ci].astype(np.float32)
-            cc = np.where(mask, 0.0, const).astype(np.float32)[None, :]
-            ccs.append(jnp.asarray(_pad_cols(cc, F_pad)))
-            if mask.any():
-                G = np.zeros((n_pad, F_pad), np.float32)
-                G[cidx[mask], np.nonzero(mask)[0]] = 1.0
-                Gs.append(jnp.asarray(G))
-                GTs.append(jnp.asarray(G.T.copy()))
-                total += 2 * 4 * n_pad * F_pad
-            else:  # fully-const (evidence) slot: no gather needed
-                Gs.append(None)
-                GTs.append(None)
-            ci += 1
-        pp = {}
-        for k in sorted(np_b["params"]):
-            v = np.asarray(np_b["params"][k], np.float32).reshape(F, -1).T
-            pp[k] = jnp.asarray(_pad_cols(np.ascontiguousarray(v), F_pad))
-            total += 4 * v.shape[0] * F_pad
-        w = np_b["scale"].astype(np.float32)[None, :]
-        wj = jnp.asarray(_pad_cols(w, F_pad, repeat_first=False))
-        total += 4 * F_pad
-        # in-kernel intermediates: slots + lp + vjp residuals (~4x per slot)
-        total += 4 * block_chains * F_pad * (4 * max(a, 1))
-        plans.append(
-            _BucketPlan(i, b.pattern, b.kernel_planar, Gs, GTs, ccs, pp,
-                        wj, disc_slots)
-        )
-    total += 4 * block_chains * n_pad * 4  # x, p, grads, scratch
-    if total > max_bytes:
-        return None
-    return LogpotPlan(fg, n_pad, plans, total)
-
-
-def disc_slot_values(fg, xd: Array) -> List[Tuple[Array, ...]]:
-    """Per xc-dependent bucket, the tuple of per-disc-slot value arrays
-    ``[C, n_f]`` (original slot order) — fixed during a continuous move,
-    computed once per proposal with one fused XLA gather per bucket."""
-    out = []
-    for i in fg.cont_bucket_idx:
-        b = fg.buckets[i]
-        if b.ad == 0:
-            out.append(())
-            continue
-        C = xd.shape[0]
-        xdi = jnp.where(
-            b.disc_mask[None] > 0,
-            xd[:, b.disc_idx]
-            if xd.shape[1]
-            else jnp.broadcast_to(b.disc_const, (C,) + b.disc_const.shape),
-            b.disc_const[None],
-        )
-        from lhvi_tpu.ops.select import select_last
-
-        xdv = select_last(b.disc_vals[None], xdi)
-        out.append(tuple(xdv[:, :, d] for d in range(b.ad)))
-    return out
-
-
-# ---------------------------------------------------------------------------
-# kernel
-
-
-def _energy_grad(x, recipe, refs):
-    """E(x) [bc,1] and ∇E(x) [bc,n_pad] of the UNtempered model part
-    (quad + planar buckets), from loaded/looked-up refs.
-
-    Slot gathers are one-hot ``x @ G`` MXU dots at HIGHEST precision
-    (exact f32 for one-hot; default bf16 passes would round x). An
-    unrolled-VPU selection variant was measured SLOWER (lane slices and
-    cross-broadcasts dominate) and removed."""
-    e = jnp.zeros((x.shape[0], 1), jnp.float32)
-    g = jnp.zeros_like(x)
-    if recipe["has_quad"]:
-        J = refs["J"][:]
-        h = refs["h"][:]
-        xJ = jnp.dot(x, J, preferred_element_type=jnp.float32,
-                     precision=jax.lax.Precision.HIGHEST)
-        e = e + jnp.sum(x * h, axis=1, keepdims=True) \
-            - 0.5 * jnp.sum(x * xJ, axis=1, keepdims=True)
-        g = g + h - xJ
-    for bi, bp in enumerate(recipe["buckets"]):
-        cont_slots = []
-        disc_slots = []
-        ci = di = 0
-        for is_cont in bp.pattern:
-            if is_cont:
-                cc = refs[f"b{bi}_cc{ci}"][:]
-                if bp.G[ci] is not None:
-                    G = refs[f"b{bi}_G{ci}"][:]
-                    # HIGHEST keeps the one-hot gather exact in f32
-                    # (default bf16 MXU passes round x to ~1e-3 rel)
-                    s = jnp.dot(
-                        x, G, preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGHEST,
-                    ) + cc
-                else:
-                    s = jnp.broadcast_to(cc, (x.shape[0], cc.shape[1]))
-                cont_slots.append(s)
-                ci += 1
-            else:
-                disc_slots.append(refs[f"b{bi}_dv{di}"][:])
-                di += 1
-        pp = {k: refs[f"b{bi}_p_{k}"][:] for k in sorted(bp.pp)}
-        w = refs[f"b{bi}_w"][:]
-
-        def f(*cs, _bp=bp, _pp=pp, _ds=disc_slots):
-            slots, cci, ddi = [], 0, 0
-            for is_cont in _bp.pattern:
-                if is_cont:
-                    slots.append(cs[cci])
-                    cci += 1
-                else:
-                    slots.append(_ds[ddi])
-                    ddi += 1
-            return _bp.planar(_pp, slots)
-
-        if cont_slots:
-            lp, vjp = jax.vjp(f, *cont_slots)
-            e = e + jnp.sum(lp * w, axis=1, keepdims=True)
-            ds = vjp(jnp.broadcast_to(w, lp.shape))
-            for ci2, d in enumerate(ds):
-                if bp.GT[ci2] is not None:
-                    GT = refs[f"b{bi}_GT{ci2}"][:]
-                    g = g + jnp.dot(
-                        d, GT, preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGHEST,
-                    )
-    return e, g
-
-
-def _leapfrog_kernel(*refs_flat, recipe, names, n_steps: int):
-    refs = dict(zip(names, refs_flat))
-    sc = refs["scalars"]
-    eps, beta = sc[0], sc[1]
-    x = refs["x"][:]
-    p = refs["p"][:]
-    im = refs["im"][:]
-    use_base = recipe["use_base"]
-    if use_base:
-        mid = refs["base_mid"][:]
-        is2 = refs["base_is2"][:]
-
-    def e_g(x):
-        e, g = _energy_grad(x, recipe, refs)
-        if use_base:
-            d = x - mid
-            e = beta * e - (1.0 - beta) * 0.5 * jnp.sum(
-                d * d * is2, axis=1, keepdims=True
-            )
-            g = beta * g - (1.0 - beta) * d * is2
-        return e, g
-
-    e0, g = e_g(x)
-    p = p + 0.5 * eps * g
-
-    def body(i, carry):
-        x, p, _ = carry
-        x = x + eps * im * p
-        e, g = e_g(x)
-        scale = jnp.where(i == n_steps - 1, 0.5, 1.0)
-        p = p + scale * eps * g
-        return (x, p, e)
-
-    x, p, e1 = jax.lax.fori_loop(0, n_steps, body, (x, p, e0))
-    refs["xo"][:] = x
-    refs["po"][:] = p
-    refs["e0o"][:] = jnp.broadcast_to(e0, refs["e0o"].shape)
-    refs["e1o"][:] = jnp.broadcast_to(e1, refs["e1o"].shape)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("plan", "n_steps", "block_chains", "use_base"),
-)
-def _pallas_logpot_leapfrog(plan, x, p, dvals, inv_mass, eps, beta,
-                            base_mid, base_is2, n_steps: int,
-                            use_base: bool, block_chains: int = 256):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    C, n = x.shape
-    n_pad = plan.n_pad
-    c_pad = _round_up(max(C, 1), 8)
-    bc = min(block_chains, c_pad)
-    c_pad = _round_up(c_pad, bc)
-
-    def pad_state(a):
-        return jnp.zeros((c_pad, n_pad), jnp.float32).at[:C, :n].set(a)
-
-    def pad_row(a):
-        return jnp.zeros((1, n_pad), jnp.float32).at[0, :n].set(a)
-
-    names: List[str] = ["scalars"]
-    inputs: List[Array] = [jnp.stack([eps, beta]).astype(jnp.float32)]
-    specs: List[Any] = [pl.BlockSpec(memory_space=pltpu.SMEM)]
-
-    def add(name, arr, spec):
-        names.append(name)
-        inputs.append(arr)
-        specs.append(spec)
-
-    full = lambda shape: pl.BlockSpec(  # noqa: E731
-        shape, lambda i: (0,) * len(shape), memory_space=pltpu.VMEM
-    )
-    blocked = lambda cols: pl.BlockSpec(  # noqa: E731
-        (bc, cols), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-
-    add("x", pad_state(x), blocked(n_pad))
-    add("p", pad_state(p), blocked(n_pad))
-    add("im", pad_row(inv_mass), full((1, n_pad)))
-    recipe: Dict[str, Any] = {
-        "has_quad": plan.has_quad,
-        "use_base": use_base,
-        "buckets": plan.buckets,
-    }
-    if plan.has_quad:
-        add("J", plan.Jp, full((n_pad, n_pad)))
-        add("h", plan.hp, full((1, n_pad)))
-    if use_base:
-        add("base_mid", pad_row(base_mid), full((1, n_pad)))
-        add("base_is2", pad_row(base_is2), full((1, n_pad)))
-    for bi, bp in enumerate(plan.buckets):
-        F_pad = bp.w.shape[1]
-        for ci, (G, GT, cc) in enumerate(zip(bp.G, bp.GT, bp.cc)):
-            add(f"b{bi}_cc{ci}", cc, full((1, F_pad)))
-            if G is not None:
-                add(f"b{bi}_G{ci}", G, full((n_pad, F_pad)))
-                add(f"b{bi}_GT{ci}", GT, full((F_pad, n_pad)))
-        for k in sorted(bp.pp):
-            add(f"b{bi}_p_{k}", bp.pp[k], full(bp.pp[k].shape))
-        add(f"b{bi}_w", bp.w, full((1, F_pad)))
-        for di in range(bp.disc_slots):
-            dv = dvals[bi][di]
-            F = dv.shape[1]
-            dvp = jnp.zeros((c_pad, F_pad), jnp.float32)
-            dvp = dvp.at[:C, :F].set(dv)
-            if F < F_pad:  # keep padded slots at a finite (col-0) value
-                # source the padded column from dvp (rows already padded
-                # to c_pad); dv[:, :1] is [C, 1] and would fail to
-                # broadcast whenever C != c_pad
-                dvp = dvp.at[:, F:].set(dvp[:, :1])
-            add(f"b{bi}_dv{di}", dvp, blocked(F_pad))
-
-    out_names = ["xo", "po", "e0o", "e1o"]
-    out_specs = [blocked(n_pad), blocked(n_pad),
-                 blocked(_LANE), blocked(_LANE)]
-    out_shape = [
-        jax.ShapeDtypeStruct((c_pad, n_pad), jnp.float32),
-        jax.ShapeDtypeStruct((c_pad, n_pad), jnp.float32),
-        jax.ShapeDtypeStruct((c_pad, _LANE), jnp.float32),
-        jax.ShapeDtypeStruct((c_pad, _LANE), jnp.float32),
-    ]
-    kernel = functools.partial(
-        _leapfrog_kernel,
-        recipe=recipe,
-        names=names + out_names,
-        n_steps=n_steps,
-    )
-    xo, po, e0, e1 = pl.pallas_call(
-        kernel,
-        grid=(c_pad // bc,),
-        in_specs=specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-    )(*inputs)
-    return xo[:C, :n], po[:C, :n], e0[:C, 0], e1[:C, 0]
-
-
-# plan arrays used by the jitted kernel must hash as static — attach the
-# padded quad form lazily and key the jit cache on object identity.
-def _attach_quad(plan: LogpotPlan, fg):
-    if plan.has_quad and not hasattr(plan, "Jp"):
-        n_pad = plan.n_pad
-        n = fg.n_cont
-        # prefer the host numpy mirror: fg.quad_J is a tracer when the
-        # plan is (re)built inside a jitted caller
-        npg = fg.meta.np_global
-        qJ = npg.get("quad_J", fg.quad_J)
-        qh = npg.get("quad_h", fg.quad_h)
-        J = np.zeros((n_pad, n_pad), np.float32)
-        J[:n, :n] = np.asarray(qJ, np.float32)
-        h = np.zeros((1, n_pad), np.float32)
-        h[0, :n] = np.asarray(qh, np.float32)
-        plan.Jp = jnp.asarray(J)
-        plan.hp = jnp.asarray(h)
-
-
-# ``plan="auto"`` resolves through this cache so every trace of a caller
-# reuses ONE plan object per compiled graph: the host-side one-hot G/GT
-# builds run once, and the jit cache of ``_pallas_logpot_leapfrog`` —
-# static-keyed on plan identity — hits instead of re-running a Mosaic
-# compile of an identical kernel. Keyed weakly on ``fg.meta`` (host-side,
-# identity-hashed, shared by every retrace of the same CompiledFG).
-_PLAN_CACHE: Any = weakref.WeakKeyDictionary()
-
-
-def logpot_plan_cached(fg) -> Optional[LogpotPlan]:
-    try:
-        return _PLAN_CACHE[fg.meta]
-    except KeyError:
-        pass
-    plan = logpot_plan(fg)
-    if plan is not None:
-        _attach_quad(plan, fg)
-    _PLAN_CACHE[fg.meta] = plan
-    return plan
-
-
-def _jnp_logpot_leapfrog(fg, x, p, xd, inv_mass, eps, beta, base_mid,
-                         base_is2, n_steps: int, use_base: bool):
-    """XLA fallback with IDENTICAL semantics (merged half-kicks)."""
+    x, p: [C, n_cont]; xd: [C, n_disc] (held fixed); eps/beta traced ok.
+    ``base_mid``/``base_inv_s2`` (both or neither) add the diagonal base
+    measure of the tempered target. Returns ``(x1, p1, lp0, lp1)`` where
+    lp = log-density of the tempered target at the start/end points, up
+    to an x-independent constant.
+    """
 
     def logp(X):
         lp = fg.log_prob_cont_batched(X, xd)
-        if use_base:
+        if base_mid is not None:
             d = X - base_mid[None]
             lp = beta * lp - (1.0 - beta) * 0.5 * jnp.sum(
-                d * d * base_is2[None], axis=-1
+                d * d * base_inv_s2[None], axis=-1
             )
         return lp
 
@@ -473,54 +53,3 @@ def _jnp_logpot_leapfrog(fg, x, p, xd, inv_mass, eps, beta, base_mid,
 
     x, p = jax.lax.fori_loop(0, n_steps, body, (x, p))
     return x, p, e0, logp(x)
-
-
-def logpot_leapfrog(fg, x, p, xd, inv_mass, eps, n_steps: int,
-                    beta=None, base_mid=None, base_inv_s2=None,
-                    plan: Optional[LogpotPlan] = None):
-    """Batched leapfrog on a (possibly tempered) non-quadratic target.
-
-    x, p: [C, n_cont]; xd: [C, n_disc] (held fixed); eps/beta traced ok.
-    Returns ``(x1, p1, lp0, lp1)`` where lp = log-density of the tempered
-    target at the start/end points, up to an x-independent constant.
-
-    ``plan=None`` (default) runs the exact fused-by-XLA batched path;
-    pass ``plan="auto"`` or a :func:`logpot_plan` result to run the
-    Pallas fused kernel. Measured on-chip (robot-map-100, 65k chains,
-    after the ``select_last`` gather fix): kernel ≈ at parity with the
-    XLA path (±20%) — the XLA path is not HBM-bound at these model
-    sizes, so VMEM residency buys little, and Mosaic compiles of the
-    vjp-in-loop kernel are slow through this environment's compile
-    helper. Opt in via ``HMCConfig.fused_logpot`` /
-    ``SMCConfig.fused_logpot`` where it helps.
-    """
-    use_base = base_mid is not None
-    if beta is None:
-        beta = jnp.float32(1.0)
-    if base_mid is None:
-        base_mid = jnp.zeros((fg.n_cont,), jnp.float32)
-        base_is2 = jnp.zeros((fg.n_cont,), jnp.float32)
-    else:
-        base_is2 = base_inv_s2
-    if plan == "auto":
-        plan = (
-            logpot_plan_cached(fg)
-            if jax.default_backend() == "tpu"
-            else None
-        )
-    if plan is not None:
-        _attach_quad(plan, fg)
-        dvals = tuple(disc_slot_values(fg, xd))
-        x1, p1, e0, e1 = _pallas_logpot_leapfrog(
-            plan, x, p, dvals, inv_mass,
-            jnp.asarray(eps, jnp.float32), jnp.asarray(beta, jnp.float32),
-            base_mid, base_is2, n_steps, use_base,
-        )
-        if fg.has_quad:  # match log_prob_cont_batched's constant term
-            e0 = e0 + beta * fg.quad_c
-            e1 = e1 + beta * fg.quad_c
-        return x1, p1, e0, e1
-    return _jnp_logpot_leapfrog(
-        fg, x, p, xd, inv_mass, eps, beta, base_mid, base_is2, n_steps,
-        use_base,
-    )

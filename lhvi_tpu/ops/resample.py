@@ -1,121 +1,23 @@
-"""Pallas fused weight pipeline for systematic resampling.
+"""Weight pipeline and systematic resampling for annealed SMC.
 
-BASELINE north-star "Pallas … resampling" kernel (SURVEY.md §3.2 row
-"collective resampler"; mount empty). The SMC per-temperature step runs a
-chain of small [N]-shaped ops between the big state arrays: log-weight
-max, exp, normalize, ESS, cumulative sum. Each is its own XLA kernel with
-its own HBM round-trip of the [N] vector, and at small particle counts the
-anneal is exactly this fixed per-temperature latency (docs/PERF.md: 8k
-particles run at 43% of the 65k per-particle rate). This kernel fuses the
-whole weight pipeline into ONE VMEM-resident pass:
-
-    (log_w_unnorm) -> (lw_norm, cum, step_z, ess)
-
-with the cumulative sum computed in-kernel by a two-level Hillis–Steele
-scan over the [rows, 128]-tiled layout (lane-axis scan per row, then a
-sublane-axis scan of row totals).
-
-What deliberately stays in XLA — and why this kernel is the *pipeline*,
-not the index search:
-
-- ``searchsorted(cum, positions)``: both arrays are sorted; XLA's binary
-  search is O(N log N) with vectorized gathers, which Mosaic (Pallas TPU)
-  cannot express (no dynamic vector gather from VMEM). Every gather-free
-  in-kernel formulation we considered (compare-count, block merge,
-  offspring histogram) is O(N²/K) with unbounded per-block windows —
-  strictly worse than XLA's search for any realistic N.
-- the parent gather ``x[idx]``: a straight HBM-bandwidth-bound gather
-  XLA already emits optimally.
-
-Falls back to pure jnp off-TPU (CPU test meshes run the identical math).
+The per-temperature step runs a chain of small [N]-shaped ops between the
+big state arrays: log-weight max, exp, normalize, ESS, cumulative sum.
+XLA fuses the reductions and has a native cumsum, so this stays plain jnp;
+on a sharded particle axis the reductions become psums over the mesh.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
-_LANE = 128
-_NEG = -1e30
 
+def weight_pipeline(log_w: jax.Array):
+    """(log_w unnormalized [N]) -> (lw_norm [N], cum [N], step_z, ess).
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _weights_kernel(lw_ref, lwn_ref, cum_ref, stats_ref, *, rows: int):
-    lw = lw_ref[:]  # [rows, 128], padding = _NEG
-    m = jnp.max(lw)
-    w = jnp.exp(lw - m)  # padding -> 0
-    s = jnp.sum(w)
-    step_z = m + jnp.log(s)
-    lwn = lw - step_z
-    wn = w / s
-    ess = 1.0 / jnp.sum(wn * wn)
-
-    # two-level inclusive scan as triangular-mask matmuls (Mosaic has no
-    # sublane concat/pad; the MXU eats these tiny triangles anyway):
-    # lane axis within each row — wn @ upper_tri gives inclusive scans …
-    li = jax.lax.broadcasted_iota(jnp.int32, (_LANE, _LANE), 0)
-    lj = jax.lax.broadcasted_iota(jnp.int32, (_LANE, _LANE), 1)
-    upper = (li <= lj).astype(jnp.float32)
-    # HIGHEST keeps the scan exact in f32: default bf16 MXU passes would
-    # round the weights feeding searchsorted to ~2^-8 relative —
-    # inconsistent with the exactly-computed lw_norm/ESS/log_z above
-    # (a systematic offspring-count bias, not extra MC variance)
-    cum = jnp.dot(wn, upper, preferred_element_type=jnp.float32,
-                  precision=jax.lax.Precision.HIGHEST)
-    # … then exclusive row offsets: strict-lower-tri @ row totals
-    row_tot = cum[:, _LANE - 1 :]  # [rows, 1] inclusive row sums
-    ri = jax.lax.broadcasted_iota(jnp.int32, (rows, rows), 0)
-    rj = jax.lax.broadcasted_iota(jnp.int32, (rows, rows), 1)
-    lower = (rj < ri).astype(jnp.float32)
-    off = jnp.dot(lower, row_tot, preferred_element_type=jnp.float32,
-                  precision=jax.lax.Precision.HIGHEST)
-    cum = cum + off
-
-    lwn_ref[:] = lwn
-    cum_ref[:] = cum
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, _LANE), 1)
-    stats_ref[:] = jnp.where(lane == 0, step_z, ess)
-
-
-@functools.partial(jax.jit, static_argnames=("n",))
-def _pallas_weight_pipeline(log_w: jax.Array, n: int):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_pad = _round_up(max(n, 1), _LANE)
-    rows = n_pad // _LANE
-    lw = jnp.full((n_pad,), _NEG, jnp.float32).at[:n].set(log_w)
-    lw = lw.reshape(rows, _LANE)
-
-    kernel = functools.partial(_weights_kernel, rows=rows)
-    lwn, cum, stats = pl.pallas_call(
-        kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((rows, _LANE), jnp.float32),
-            jax.ShapeDtypeStruct((rows, _LANE), jnp.float32),
-            jax.ShapeDtypeStruct((1, _LANE), jnp.float32),
-        ],
-    )(lw)
-    return (
-        lwn.reshape(-1)[:n],
-        cum.reshape(-1)[:n],
-        stats[0, 0],
-        stats[0, 1],
-    )
-
-
-def _jnp_weight_pipeline(log_w: jax.Array, n: int):
+    ``cum`` is the inclusive cumulative of the normalized weights — feed it
+    straight to ``searchsorted`` for systematic/multinomial resampling.
+    """
     m = jnp.max(log_w)
     w = jnp.exp(log_w - m)
     s = jnp.sum(w)
@@ -124,19 +26,6 @@ def _jnp_weight_pipeline(log_w: jax.Array, n: int):
     wn = w / s
     ess = 1.0 / jnp.sum(wn * wn)
     return lwn, jnp.cumsum(wn), step_z, ess
-
-
-def weight_pipeline(log_w: jax.Array):
-    """(log_w unnormalized [N]) -> (lw_norm [N], cum [N], step_z, ess).
-
-    One fused VMEM pass on TPU; jnp fallback elsewhere. ``cum`` is the
-    inclusive cumulative of the normalized weights — feed it straight to
-    ``searchsorted`` for systematic/multinomial resampling.
-    """
-    n = log_w.shape[0]
-    if jax.default_backend() == "tpu":
-        return _pallas_weight_pipeline(log_w, n)
-    return _jnp_weight_pipeline(log_w, n)
 
 
 def systematic_parents(key: jax.Array, cum: jax.Array, n: int) -> jax.Array:

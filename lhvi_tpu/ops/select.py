@@ -1,12 +1,11 @@
-"""Minor-axis value selection without TPU's pathological gather lowering.
+"""Minor-axis value selection as an unrolled compare-select.
 
-``take_along_axis`` over a small trailing value axis — the idiom behind
-every discrete slot-value lookup in this framework — lowers on TPU to a
-gather path measured at ~1 ms PER 65k-row factor column (e.g. 90 ms for
-one [65536, 88, 1, 3] lookup on this chip), independent of how tiny the
-value axis is. :func:`select_last` replaces it with an unrolled
-compare-select over the value axis: V fused VPU ops, no materialized
-broadcast of the value table, exact same result.
+``take_along_axis`` over a small trailing value axis is the idiom behind
+every discrete slot-value lookup in this framework. :func:`select_last`
+computes the same result with V fused elementwise selects and no
+materialized broadcast of the value table. It was written against a slow
+gather lowering on another accelerator; whether plain ``take_along_axis``
+is as fast on the GPU is open (ROADMAP design item 5).
 """
 
 from __future__ import annotations

@@ -81,8 +81,8 @@ def shard_map_chains(fn, shard: NamedSharding, n_sharded_args: int,
 
     The first ``n_sharded_args`` positional args are partitioned on their
     leading (chains) axis; the rest are replicated. Every output is
-    chain-leading and partitioned the same way. This is how the Pallas
-    kernels compose with a sharded chain axis: a bare ``pallas_call``
+    chain-leading and partitioned the same way. This is how the Triton
+    quad leapfrog composes with a sharded chain axis: a bare ``pallas_call``
     does not SPMD-partition, but per-shard invocation under ``shard_map``
     runs one kernel instance per device with no cross-device traffic
     (the kernels are embarrassingly parallel over chains).

@@ -2,7 +2,7 @@
 
 Parity target: the reference's ``Potential.py`` / ``MLNPotential.py``
 per-class ``get(x)`` evaluators (SURVEY.md §3.1; mount empty — behavioral
-reconstruction). TPU-first redesign: every potential *type* contributes one
+reconstruction). Batched redesign: every potential *type* contributes one
 batched, jit-traceable ``log φ`` kernel operating on stacked parameter
 arrays for a whole bucket of same-type factors at once; the host-side
 ``Potential`` objects only *declare* parameters.
@@ -69,12 +69,10 @@ class Potential:
         the minor axis. Components are read with static row slices
         (``leaf[i:i+1]`` → ``[1, F]``), which broadcast against slots.
 
-        The Pallas fused log-potential kernel (``ops/logpot.py``) requires
-        this layout: factors ride the TPU lane dimension, components are
-        unrolled — the slot-minor ``[..., arity]`` layout of
-        :meth:`kernel` would waste 64x+ of the vector registers
-        in-kernel. Return None (default) to opt out — XLA paths never
-        use it.
+        This is the layout a fused non-quadratic leapfrog kernel would
+        consume (factors contiguous on the minor axis, components
+        unrolled; ROADMAP queues such a kernel). No engine uses it today.
+        Return None (default) to opt out.
         """
         return None
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from lhvi_tpu.potentials.base import Potential
@@ -58,7 +59,8 @@ class GaussianPotential(Potential):
     def kernel(self, pattern):
         def log_pot(params, xc, xdi, xdv):
             d = xc - params["mu"]
-            quad = jnp.einsum("...i,...ij,...j->...", d, params["prec"], d)
+            quad = jnp.einsum("...i,...ij,...j->...", d, params["prec"], d,
+                              precision=jax.lax.Precision.HIGHEST)
             return params["log_coef"] - 0.5 * quad
 
         return log_pot
@@ -129,8 +131,10 @@ class QuadraticPotential(Potential):
 
     def kernel(self, pattern):
         def log_pot(params, xc, xdi, xdv):
-            quad = jnp.einsum("...i,...ij,...j->...", xc, params["A"], xc)
-            lin = jnp.einsum("...i,...i->...", params["b"], xc)
+            hi = jax.lax.Precision.HIGHEST
+            quad = jnp.einsum("...i,...ij,...j->...", xc, params["A"], xc,
+                              precision=hi)
+            lin = jnp.einsum("...i,...i->...", params["b"], xc, precision=hi)
             return quad + lin + params["c"]
 
         return log_pot

@@ -1,9 +1,9 @@
 """Direct relational→IR compiler: grounding without the object graph.
 
-SURVEY.md §4.1 (mount empty): grounding "is combinatorial — in the TPU
-build this becomes index-array construction (meshgrid + segment ids)
-done once on host". ``RelationalGraph.ground()`` + ``compile_graph``
-realize that through per-ground Python ``RV``/``F`` objects — fine to
+SURVEY.md §4.1 (mount empty): grounding "is combinatorial — in the
+accelerator build this becomes index-array construction (meshgrid +
+segment ids) done once on host". ``RelationalGraph.ground()`` +
+``compile_graph`` realize that through per-ground Python ``RV``/``F`` objects — fine to
 ~1e5 groundings, object-bound beyond. :func:`fast_compile` grounds a
 ``RelationalGraph`` STRAIGHT to the array IR: substitutions are
 ``np.indices`` products, atom ids are mixed-radix arithmetic, evidence

@@ -8,7 +8,7 @@ of constants, get-or-creates ground RVs keyed by ``(predicate, args)``, and
 instantiates one ground factor per substitution. Evidence is loaded into
 ``RV.value`` slots by key.
 
-TPU note (SURVEY.md §4.1): grounding is host-side, combinatorial, and runs
+Design note (SURVEY.md §4.1): grounding is host-side, combinatorial, and runs
 once; the output feeds ``compile_graph``/``compile_lifted`` which turn it
 into index arrays. The grounding loop is pure index construction —
 the natural place for a native (C++) fast path in a later stage.

@@ -170,7 +170,7 @@ def test_disc_logits_identity_on_relational_model():
 
 def test_disc_logits_repeated_discrete_argument():
     """A grounded factor referencing the same discrete latent in TWO slots
-    (ADVICE r1 #2) must yield full conditionals built from log phi(v, v)
+    must yield full conditionals built from log phi(v, v)
     counted once — not log phi(v, cur) + log phi(cur, v). Checked via the
     conditional-vs-joint identity, which log_prob (correct for repeated
     slots by construction) anchors."""

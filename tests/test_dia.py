@@ -1,17 +1,16 @@
-"""Banded (DIA) refinement of the ELL sparse path (VERDICT r4 #7).
+"""Banded (DIA) refinement of the ELL sparse path.
 
 The detector must reproduce the ELL matvec exactly (including the
-declaration-order embedding that undoes evidence compaction); the
-trajectory kernel (TPU interpreter on the CPU mesh) must match the jnp
-fallback, which must match the ELL leapfrog; and HMC through the DIA
-path must still recover the exact oracle.
+declaration-order embedding that undoes evidence compaction); the DIA
+leapfrog must match the ELL leapfrog, the fused proposal must match its
+unfused composition; and HMC through the DIA path must still recover the
+exact oracle.
 """
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from lhvi_tpu import compile_graph
 from lhvi_tpu.engines import hmc
@@ -81,34 +80,35 @@ def test_dia_leapfrog_matches_ell(grid_fg):
     assert np.array_equal(np.asarray(la), np.asarray(lb))
 
 
-def test_dia_kernel_interpret_matches_fallback(grid_fg):
-    """The Pallas kernel itself (TPU interpreter on CPU): circular-roll
-    masking, padding, and the merged-kick composition all agree with the
-    jnp fallback on the same EMBEDDED inputs."""
+def test_dia_proposal_matches_unfused(grid_fg):
+    """``dia_hmc_proposal`` (gather-embedded, energies from the
+    integrator) equals the unfused composition: the same momenta drawn in
+    embedded space, the scatter-embedded ``dia_quad_leapfrog``, and the
+    ELL energies of both endpoints."""
     _, _, fgs = grid_fg
     rng = np.random.default_rng(2)
-    n_emb = fgs.quad_dia_w.shape[1]
+    n = fgs.n_cont
+    x = jnp.asarray(rng.normal(size=(9, n)), jnp.float32)
+    im = jnp.asarray(rng.uniform(0.5, 2.0, n), jnp.float32)
+    key = jax.random.PRNGKey(3)
+    x1, log_acc = dia.dia_hmc_proposal(
+        key, x, fgs.quad_diag, fgs.quad_dia_offsets, fgs.quad_dia_w,
+        fgs.quad_h, im, 0.07, 5, pos=fgs.quad_dia_pos, inv=fgs.quad_dia_inv)
     pos = np.asarray(fgs.quad_dia_pos)
-
-    def emb(a):
-        out = np.zeros(a.shape[:-1] + (n_emb,), np.float32)
-        out[..., pos] = a
-        return jnp.asarray(out)
-
-    x = emb(rng.normal(size=(9, fgs.n_cont)).astype(np.float32))
-    p = emb(rng.normal(size=(9, fgs.n_cont)).astype(np.float32))
-    im = emb(np.ones(fgs.n_cont, np.float32))
-    dg = emb(np.asarray(fgs.quad_diag))
-    h = emb(np.asarray(fgs.quad_h))
-    ref = dia._jnp_dia_leapfrog(x, p, dg, fgs.quad_dia_offsets,
-                                fgs.quad_dia_w, h, im, 0.07, 5)
-    with pltpu.force_tpu_interpret_mode():
-        got = dia._pallas_dia_leapfrog(
-            x, p, dg, fgs.quad_dia_w, h, im, jnp.asarray(0.07),
-            fgs.quad_dia_offsets, 5)
-    for a, b, name in zip(got, ref, ("x1", "p1", "lp0", "lp1")):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-4, atol=2e-3, err_msg=name)
+    n_emb = fgs.quad_dia_w.shape[1]
+    std = np.zeros(n_emb, np.float32)
+    std[pos] = np.sqrt(1.0 / np.asarray(im))
+    p0 = jnp.asarray((std[None] * np.asarray(
+        jax.random.normal(key, (9, n_emb))))[:, pos])
+    rx, rp, lp0, lp1 = dia.dia_quad_leapfrog(
+        x, p0, fgs.quad_diag, fgs.quad_dia_offsets, fgs.quad_dia_w,
+        fgs.quad_h, im, 0.07, 5, pos=fgs.quad_dia_pos)
+    ke = lambda p: 0.5 * jnp.sum(im[None] * p * p, -1)
+    ref = jnp.minimum(0.0, (lp1 - lp0) + (ke(p0) - ke(rp)))
+    np.testing.assert_allclose(np.asarray(x1), np.asarray(rx),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(log_acc), np.asarray(ref),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_fuzz_dia_detection_and_matvec():

@@ -1,4 +1,4 @@
-"""Exact-at-scale oracle for the ELL/DIA sparse path (VERDICT r4 #2).
+"""Exact-at-scale oracle for the ELL/DIA sparse path.
 
 The house methodology (SURVEY.md §5, "comparison-against-exact") applied
 AT deployment scale: on the 128×128 evidence grid (15,600 latents — ~4×
@@ -9,8 +9,8 @@ information form cross-checks the means independently. HMC through the
 fused sparse path must agree within MC error at ALL dims — previously
 the 128×128 tests asserted only finiteness and acceptance.
 
-Wall-clock note (docs/PERF.md round 5): GaBP needs ~0.5 s for 400
-segment-sum sweeps at 15.6k vars on the CPU mesh; the splu oracle ~1 s.
+Wall-clock note: GaBP needs ~0.5 s for 400 segment-sum sweeps at 15.6k
+vars on the CPU mesh; the splu oracle ~1 s.
 """
 
 import numpy as np

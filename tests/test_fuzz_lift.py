@@ -5,8 +5,8 @@ objects, identical evidence) are exactly exchangeable, so color
 refinement must compress them and the lifted ELBO with orbit-tied
 parameters must equal the grounded ELBO with those parameters broadcast
 to every copy — the invariant behind lifted VI (and the area of round
-1's worst bug: quadratic fusion on same-orbit tied slots, ADVICE.md
-high finding; copies whose base graph has internal symmetry put both
+1's worst bug: quadratic fusion on same-orbit tied slots; copies whose
+base graph has internal symmetry put both
 slots of a pairwise factor on one orbit slot and exercise exactly that
 path)."""
 

@@ -68,7 +68,7 @@ def test_vi_matches_gabp_means_on_grid():
 def test_gabp_scales_to_100x100_grid():
     """Sparse edge-list construction from factor adjacency: 10k-variable
     grid builds + runs in seconds of host time (the dense double loop was
-    O(n^2) — VERDICT r1 weak #4)."""
+    O(n^2))."""
     import time
     from lhvi_tpu.models.toy import gaussian_grid
 

@@ -133,7 +133,7 @@ def test_friends_smokers_compression():
 
 
 def test_lifted_elbo_equals_grounded_elbo_tied_slots():
-    """ADVICE r1 #1 regression: a 3-cycle of exchangeable continuous RVs
+    """Regression: a 3-cycle of exchangeable continuous RVs
     with XY couplings puts BOTH slots of every coupling factor on the same
     orbit slot. Quadratic fusion would fold the cross coupling J_xy onto
     the diagonal (E[x^2] = mu^2 + sigma^2 where the ground tied-parameter

@@ -115,7 +115,7 @@ def test_engine_comparison_script_smoke(tmp_path):
 
 
 def test_pod_scale_script_emits_scaling_event(tmp_path):
-    """The pod-scale scaling harness (VERDICT r4 #6) runs end-to-end on
+    """The pod-scale scaling harness runs end-to-end on
     the virtual CPU mesh and emits the `scaling` efficiency event plus
     per-config convergence events carrying the discrete split-R̂ fields."""
     import json

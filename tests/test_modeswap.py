@@ -4,8 +4,8 @@ Exactness vs enumeration on an intra-coupled spin block whose single-site
 flips are strongly suppressed, structural invariants of the plan (F
 independence, direct-row masking), and the production failure it exists
 to fix: the friends-smokers ferromagnetic smokes clique freezing every
-chain at a chain-specific joint mode (docs/PERF.md round 5 "Discrete
-mode-locking"; SURVEY.md §5.2 comparison-against-exact methodology).
+chain at a chain-specific joint mode (discrete mode-locking; SURVEY.md
+§5.2 comparison-against-exact methodology).
 """
 
 import numpy as np

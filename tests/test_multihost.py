@@ -24,7 +24,6 @@ _PORT = 29517
 def _worker(pid: int, nproc: int = 2):
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     os.environ["JAX_PLATFORMS"] = "cpu"
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lhvi_jax_cache")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -39,6 +38,9 @@ def _worker(pid: int, nproc: int = 2):
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    from lhvi_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     from lhvi_tpu import compile_graph
     from lhvi_tpu.engines import hmc
     from lhvi_tpu.models.toy import hybrid_chain
@@ -114,7 +116,6 @@ def test_run_hmc_over_two_process_dcn_mesh(tmp_path):
         k: v for k, v in os.environ.items()
         if k not in ("XLA_FLAGS", "JAX_PLATFORMS")
     }
-    env["JAX_COMPILATION_CACHE_DIR"] = "/tmp/lhvi_jax_cache"
     # shared checkpoint root for the resume-bitwise segment (stands in for
     # the shared filesystem a real pod checkpoint setup requires)
     env["LHVI_MH_CKPT"] = str(tmp_path / "ck")

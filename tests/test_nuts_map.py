@@ -90,7 +90,7 @@ def test_nuts_moments_and_thin_match_samples():
 
 def test_nuts_sharded_chains_public_entry():
     """run_nuts(shard=...) distributes the chain axis over the 8-device
-    mesh through the public entry point (VERDICT r1 missing #4)."""
+    mesh through the public entry point."""
     from lhvi_tpu.parallel import make_mesh, chain_sharding
 
     mesh = make_mesh(axis_names=("dp",))

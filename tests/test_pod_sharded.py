@@ -1,4 +1,4 @@
-"""Pod-scale flagship path under a sharded chain axis (VERDICT r3 #1a).
+"""Pod-scale flagship path under a sharded chain axis.
 
 BASELINE config 5 names "pod-scale lifted MRF … chains sharded across
 N≥2 hosts"; the hot kernel there is the ``GibbsColorPlan`` sweep
@@ -66,7 +66,7 @@ def test_planned_gibbs_sharded_matches_unsharded(pod_fg):
 
 
 def test_sharded_matches_unsharded_with_adaptation(pod_fg):
-    """VERDICT r4 #5: FULL warmup (dual averaging + Welford mass
+    """FULL warmup (dual averaging + Welford mass
     adaptation) sharded vs unsharded. Unlike the adaptation-off test
     above, the adapted path feeds CROSS-CHAIN reductions back into every
     chain: ``jnp.mean(acc)`` drives dual averaging and the batched

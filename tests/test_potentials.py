@@ -100,7 +100,7 @@ def test_batched_broadcasting():
 
 
 def test_planar_kernels_match_slot_minor():
-    """kernel_planar (slot-major, Pallas layout) must agree with the
+    """kernel_planar (slot-major layout) must agree with the
     slot-minor kernel on every potential that provides it."""
     import jax.numpy as jnp
 

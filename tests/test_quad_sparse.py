@@ -1,4 +1,4 @@
-"""ELL-sparse quadratic fast path (VERDICT r3 #4): Gaussian MRFs past the
+"""ELL-sparse quadratic fast path: Gaussian MRFs past the
 dense ``quad_max_n`` cap stay on the fused path instead of silently
 falling back to the gather-based bucket evaluation.
 
@@ -78,7 +78,7 @@ def test_sparse_nuts_recovers_oracle_means(grid_pair):
 
 
 def test_128x128_grid_stays_fused():
-    """The VERDICT scenario verbatim: a 128×128 Gaussian grid (16,384
+    """The scenario verbatim: a 128×128 Gaussian grid (16,384
     vars — 4× past the dense cap) compiles to the fused ELL path, and an
     HMC step program runs finite. (A dense J here would be 1 GB.)"""
     g, _ = gaussian_grid(rows=128, cols=128, seed=1, evidence_frac=0.05)
@@ -178,8 +178,8 @@ def test_fuzz_ell_matches_dense():
 
 def test_ell_matvec_codegen_paths_agree():
     """ell_matvec has two codegen paths (unrolled gather·FMA for D ≤ 16,
-    one-shot gather·sum above — the perf-critical split, docs/PERF.md
-    round 4): both must equal the dense J@x on random ELL tables."""
+    one-shot gather·sum above): both must equal the dense J@x on random
+    ELL tables."""
     from lhvi_tpu.ops.leapfrog import ell_matvec
 
     rng = np.random.default_rng(3)

@@ -1,4 +1,4 @@
-"""Checkpoint-in-the-loop + resume (VERDICT r1 missing #5 / next-round #7):
+"""Checkpoint-in-the-loop + resume:
 a killed chunked run resumed with the same key produces BITWISE-identical
 streamed moments to an uninterrupted run."""
 

@@ -1,15 +1,14 @@
-"""Pallas kernels under a sharded chain axis (shard_map dispatch).
+"""Kernels under a sharded chain axis (shard_map dispatch).
 
-The CI mesh is CPU (conftest), where the kernels fall back to XLA — those
-runs validate the cfg.shard plumbing and the shard_map helper. The
-on-TPU assertions (sharded quad-leapfrog bitwise == unsharded; sharded
-NUTS trajectory statistically consistent) are guarded by a backend skip
-and were verified on hardware (docs/PERF.md round 3).
+The CI mesh is CPU (conftest), where the engines take the XLA leapfrog —
+those runs validate the cfg.shard plumbing and the shard_map helper. The
+Triton quad leapfrog itself runs here in interpret mode under
+``shard_map_chains`` and must equal the unsharded kernel bitwise.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from lhvi_tpu import compile_graph
 from lhvi_tpu.engines import hmc, nuts
@@ -47,13 +46,13 @@ def test_shard_map_chains_helper():
 
 
 def test_run_nuts_sharded_keeps_pallas_flag():
-    """shard= no longer force-disables cfg.pallas: the trajectory kernel
-    dispatches per shard via shard_map (XLA fallback on this CPU mesh)."""
+    """run_nuts(shard=...) on a pure-quadratic grid: the lockstep XLA tree
+    partitions over the chain axis and returns finite moments."""
     fg = _grid_fg()
     mesh = make_mesh(axis_names=("dp",))
     sh = chain_sharding(mesh)
     m, _, diag = nuts.run_nuts(
-        fg, jax.random.PRNGKey(0), nuts.NUTSConfig(max_depth=4, pallas=True),
+        fg, jax.random.PRNGKey(0), nuts.NUTSConfig(max_depth=4),
         n_chains=64, n_warmup=50, n_samples=100, collect="moments", shard=sh,
     )
     assert np.isfinite(np.asarray(m["mean"])).all()
@@ -83,18 +82,23 @@ def test_run_hmc_sharded_quad_path():
     assert np.mean(errs) < 0.08, np.mean(errs)
 
 
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="Pallas kernels require TPU")
-def test_sharded_pallas_bitwise_on_tpu():
-    """1-device mesh: the shard_map dispatch itself must not change the
-    stream. On multi-device meshes only statistical agreement holds
-    (cross-device reduction order perturbs adaptation — see the sharded
-    quad-path test's docstring)."""
+def test_sharded_triton_leapfrog_bitwise():
+    """The Triton quad leapfrog (interpret mode) dispatched per shard by
+    ``shard_map_chains`` over the 8-device CPU mesh equals the unsharded
+    kernel bitwise: chains never communicate inside a trajectory."""
+    from lhvi_tpu.ops.leapfrog import _triton_quad_leapfrog
+
     fg = _grid_fg()
-    mesh = make_mesh(axis_names=("dp",), devices=jax.devices()[:1])
-    sh = chain_sharding(mesh)
-    kw = dict(n_chains=128, n_warmup=50, n_samples=100, collect="moments")
-    m0, _, _ = hmc.run_hmc(fg, jax.random.PRNGKey(0), hmc.HMCConfig(), **kw)
-    m1, _, _ = hmc.run_hmc(fg, jax.random.PRNGKey(0), hmc.HMCConfig(),
-                           shard=sh, **kw)
-    assert (np.asarray(m0["mean"]) == np.asarray(m1["mean"])).all()
+    n = fg.n_cont
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.normal(size=(128, n)), jnp.float32)
+    p = jnp.asarray(rng.normal(size=(128, n)), jnp.float32)
+    im = jnp.ones(n, jnp.float32)
+    kern = lambda x_, p_, J_, h_, im_, e_: _triton_quad_leapfrog(
+        x_, p_, J_, h_, im_, e_, 6, block_chains=16, interpret=True)
+    sh = chain_sharding(make_mesh(axis_names=("dp",)))
+    sharded = jax.jit(shard_map_chains(kern, sh, n_sharded_args=2))
+    got = sharded(x, p, fg.quad_J, fg.quad_h, im, 0.1)
+    ref = jax.jit(kern)(x, p, fg.quad_J, fg.quad_h, im, 0.1)
+    for a, b in zip(got, ref):
+        assert (np.asarray(a) == np.asarray(b)).all()

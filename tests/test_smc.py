@@ -117,7 +117,7 @@ def test_sharded_particle_hot_path():
 def test_run_smc_public_shard_matches_unsharded():
     """run_smc(shard=...) through the PUBLIC entry point: identical result
     to the unsharded run (same keys -> same anneal), particles distributed
-    over the 8-device mesh (VERDICT r1 missing #4)."""
+    over the 8-device mesh."""
     from lhvi_tpu.parallel import make_mesh, chain_sharding
 
     mesh = make_mesh(axis_names=("dp",))

@@ -1,4 +1,4 @@
-"""Adaptive SMC (VERDICT r3 #3): CESS-targeted tempering + Robbins–Monro
+"""Adaptive SMC: CESS-targeted tempering + Robbins–Monro
 rejuvenation step sizes.
 
 Ground truth: every model here is pure-Gaussian, so log Z is closed-form

@@ -1,5 +1,5 @@
-"""Streamed convergence diagnostics for DISCRETE latents + batch-means ESS
-(VERDICT r4 #1/#8): the flagship's state is 99.7% discrete, so production
+"""Streamed convergence diagnostics for DISCRETE latents + batch-means ESS:
+the flagship's state is 99.7% discrete, so production
 mode must ship split-R̂ evidence for it — streamed, since pod-scale runs
 never materialize samples.
 

@@ -96,8 +96,7 @@ def test_vi_pure_discrete():
 
 def test_vi_map_is_mixture_mode_not_component_heuristic():
     """Overlapping equal components: the mode is BETWEEN the means; a
-    w_k/sigma_k component pick would return one of the means (VERDICT r1
-    weak #7)."""
+    w_k/sigma_k component pick would return one of the means."""
     x = RV(Domain([-10, 10], continuous=True), name="x")
     g = Graph([x], [F(GaussianPotential([0.0], [[1.0]]), [x])])
     fg = compile_graph(g)
